@@ -3,8 +3,8 @@
 
 The synthetic label is a softmax mean of neighbor signals weighted by each
 neighbor's OWN importance — representable by GATv1 scores, not by uniform
-sum/mean aggregation. On TPU at benchmark scales the attention lowers to
-the flash-GAT Pallas kernels.
+sum/mean aggregation. On the GPU, with bf16 compute, the attention lowers
+to the flash-GAT Pallas kernels.
 
     python examples/gat/main.py --synthetic
 """
@@ -38,7 +38,7 @@ def main():
         train_dataset=os.path.join(args.data, "train"),
         eval_dataset=os.path.join(args.data, "eval"),
         predict_dataset=os.path.join(args.data, "eval"),
-        json_path=os.path.join(here, "model_description.yaml"),
+        json_path=os.path.join(here, "model_description.json"),
         model_dir=os.path.join(args.data, "checkpoints"),
         debug_dir=os.path.join(args.data, "debug"),
         batch_size=16,

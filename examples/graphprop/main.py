@@ -39,7 +39,7 @@ def main():
         train_dataset=os.path.join(args.data, "train"),
         eval_dataset=os.path.join(args.data, "eval"),
         predict_dataset=os.path.join(args.data, "eval"),
-        json_path=os.path.join(here, "model_description.yaml"),
+        json_path=os.path.join(here, "model_description.json"),
         model_dir=os.path.join(args.data, "checkpoints"),
         debug_dir=os.path.join(args.data, "debug"),
         batch_size=16,

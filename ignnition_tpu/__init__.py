@@ -1,10 +1,10 @@
-"""ignnition_tpu — a TPU-native declarative GNN framework.
+"""ignnition_tpu — a declarative GNN framework in JAX, run on NVIDIA GPUs.
 
 A from-scratch JAX/XLA/Pallas re-design with the capabilities of the
 IGNNITION framework (reference: zhangbiqiong/ignnition): declarative
 model_description.json -> compiled message-passing GNN, with a padded
 statically-shaped merged GraphBatch, `lax.scan` message-passing iterations,
-Pallas TPU kernels on the segment-sum hot path, and pjit/shard_map
+a Pallas (Triton) kernel for dense GAT attention, and shard_map
 parallelism.
 
 Public API mirrors the reference's four verbs (framework_operations.py):
@@ -57,9 +57,10 @@ __all__ = [
 
 
 def __getattr__(name):
-    # API verbs live in .api, which pulls in training deps (optax/orbax);
+    # API verbs live in .api, which pulls in training deps (optax);
     # import lazily so light-weight uses stay light.
-    if name in ("create_model", "train_and_evaluate", "predict", "debug", "Runner", "Model"):
+    if name in ("create_model", "train_and_evaluate", "predict", "debug",
+                "Runner", "Model", "RunConfig"):
         from . import api
 
         return getattr(api, name)

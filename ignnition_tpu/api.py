@@ -45,13 +45,14 @@ class Model:
 
 def _enable_compilation_cache(cfg: RunConfig) -> None:
     """Point JAX's persistent compilation cache at the configured directory
-    (no-op when unset). Restarted processes then reuse compiled TPU
-    executables instead of repaying the full XLA compile."""
+    (no-op when unset; JAX_COMPILATION_CACHE_DIR, where set, wins —
+    utils/cache.py). Restarted processes then reuse compiled executables
+    instead of repaying the full XLA compile."""
     d = getattr(cfg, "compilation_cache_dir", None)
     if d:
-        import jax
+        from .utils.cache import enable_compilation_cache
 
-        jax.config.update("jax_compilation_cache_dir", str(d))
+        enable_compilation_cache(d)
 
 
 def create_model(config: str | RunConfig = "./train_options.ini") -> Model:
@@ -76,19 +77,23 @@ class Runner:
         mesh=None,
         model_strategy: str = "replicated",
         tensorboard_dir: Optional[str] = None,
+        compute_dtype=None,
     ):
         """mesh: optional jax Mesh ('data','model') — train_and_evaluate then
         runs the SPMD parallel step, consuming mesh.shape['data'] merged
         batches per step (graph-batch data parallelism x edge partitioning).
         model_strategy: 'replicated' (v1 psum) or 'dest_shard' (v2
         destination-sharded halo exchange) for the mesh's model axis — see
-        docs/scaling.md."""
+        docs/scaling.md. compute_dtype: e.g. jnp.bfloat16 for mixed-precision
+        training steps (float32 master weights)."""
         self.model = model
         _enable_compilation_cache(model.config)  # programmatic-config path
         self.gnn = build(model.ir)
         if padding is None and getattr(model.config, "per_graph_padding", False):
             padding = PaddingConfig(per_graph=True)
-        self.trainer = Trainer(self.gnn, padding=padding)
+        self.trainer = Trainer(
+            self.gnn, padding=padding, compute_dtype=compute_dtype
+        )
         self.seed = seed
         self.mesh = mesh
         self.model_strategy = model_strategy

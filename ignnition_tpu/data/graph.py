@@ -2,7 +2,7 @@
 
 The reference framework feeds one ragged python-dict graph at a time and
 "batches" by tracing a python loop over graphs (generate_model.py:712-726).
-On TPU that is the wrong shape: XLA wants one statically-shaped program.
+For XLA that is the wrong shape: it wants one statically-shaped program.
 
 Here a batch of B graphs becomes ONE merged graph:
   * per-entity node arrays are concatenated with contiguous offsets, padded to
@@ -189,26 +189,25 @@ def infer_label_domain(model_ir) -> Tuple[str, str]:
 
 
 
-# slots per windowed-sort chunk (see slice_sort_* below): the largest gather
-# footprint that still runs near the TPU's random-row-gather peak
+# slots per windowed-sort chunk (see slice_sort_* below): bounds the source
+# table each backward gather reads (tuned on the previous accelerator; not
+# yet re-measured on the GPU)
 _SLICE_SORT_CHUNK = 131072
 
 # dense-incidence cap: a [n_dst, n_src] bf16 multiplicity matrix replaces the
 # whole gather + segment-sum round trip of a direct-assignation sum
-# aggregation with ONE MXU matmul (out = M @ states; AD's transpose
+# aggregation with ONE matmul (out = M @ states; AD's transpose
 # d_states = M^T @ d_out replaces the backward too). Reading M is sequential
-# HBM traffic, which beats descriptor-bound random row gathers up to this
-# size. M scales quadratically with graph size while the gathers scale
-# linearly, so there is a crossover: measured on v5e, dense wins at 33M
-# entries (245 vs 174 Medges/s) and 134M (189 vs 155), and breaks even at
-# 536M (1 GB M) — the default cap sits between the last two.
+# device-memory traffic, which beats random row gathers up to some size. M
+# scales quadratically with graph size while the gathers scale linearly, so
+# there is a crossover; the cap was set on the previous accelerator and is
+# not yet re-measured on the GPU (ROADMAP Speed 1.5).
 _DENSE_INC_MAX_ENTRIES = int(
     os.environ.get("IGNNITION_TPU_DENSE_INC_MAX_ENTRIES", 160_000_000)
 )
 # ... and a floor: for small graphs the step is so cheap that shipping M to
-# the device every batch costs more end-to-end than the gathers it saves
-# (measured: 28 vs 81 steps/s on a 3k-edge streaming workload, identical
-# metrics). Below this many padded edges the gather path wins.
+# the device every batch costs more end-to-end than the gathers it saves.
+# Below this many padded edges the gather path runs.
 _DENSE_INC_MIN_EDGES = int(
     os.environ.get("IGNNITION_TPU_DENSE_INC_MIN_EDGES", 16384)
 )
@@ -315,17 +314,16 @@ def _append_dense_inc(
     out, src, dst, e_real, n_src_pad, n_dst_pad, want, int8=False
 ):
     """Dense incidence (multiplicity) matrix for direct-assignation vector
-    aggregations: one MXU matmul replaces the per-edge gather, the
-    segment-sum kernel, AND the backward's cotangent gathers (see
+    aggregations: one matmul replaces the per-edge gather, the sorted
+    segment sum, AND the backward's cotangent gathers (see
     _DENSE_INC_MAX_ENTRIES / _DENSE_INC_MIN_EDGES).
 
     int8=True stores the matrix as int8 (exact for multiplicities <= 127,
-    bf16 fallback above): the matmul paths astype on load and XLA fuses
-    the convert into the operand stream — measured 1.6-1.8x on the
-    isolated fwd+bwd dense matmul (tools/exp_int8_inc.py), halving the
-    dominant HBM stream of the dense stages. The flash-GAT kernels
-    upcast the int8 tiles in-register (bit-identical, 1.08x isolated),
-    so attention matrices ride the same storage."""
+    bf16 fallback above): the matmul paths astype on load, halving the
+    dominant device-memory stream of the dense stages
+    (tools/exp_int8_inc.py measures it). The flash-GAT kernels upcast the
+    int8 tiles in registers, so attention matrices ride the same
+    storage."""
     if not (
         want
         and n_dst_pad * n_src_pad <= _DENSE_INC_MAX_ENTRIES
@@ -354,7 +352,7 @@ def adjacency_aux_arrays(
     """Host-precomputed companions of one destination-sorted edge list.
 
     Everything the compute path would otherwise derive on device with
-    scatters/searchsorted (slow on TPU):
+    scatters/searchsorted:
       row_ptr            CSR pointers over destinations
       lens               real in-degree per destination
       src_perm           stable sort of edges by source
@@ -510,8 +508,9 @@ def slice_sort_companions(
     """Windowed sort companions of a [T, n_dst] slice-source table, for the
     gather_state_slices backward (ops/segment.py _gss_bwd).
 
-    Windowed sort: XLA row gathers fall off a ~5x/row cliff once the
-    SOURCE array exceeds ~262k rows (measured on v5e). Slots are sorted
+    Windowed sort: XLA row gathers slowed down ~5x per row once the SOURCE
+    array exceeded ~262k rows on the previous accelerator (not yet
+    re-measured on the GPU). Slots are sorted
     within ~equal windows of <= _SLICE_SORT_CHUNK slots; the backward then
     gathers each window from a SLICED (small) source with LOCAL indices.
     Window c's sources get segment ids offset by c*n_src_pad, so one

@@ -1,4 +1,4 @@
-"""Model-description front-end: JSON/YAML -> validated ModelIR.
+"""Model-description front-end: JSON (or optional YAML) -> validated ModelIR.
 
 Covers the reference's `Model_information.__init__` pipeline
 (json_operations.py:128-149): read, structural validation, semantic
@@ -18,12 +18,18 @@ _RESERVED_INPUTS = ("hs_source", "hs_dest", "edge_params")
 
 
 def load_description(path) -> dict:
-    """Load a model description from a .json or .yaml/.yml file."""
+    """Load a model description from a .json file (the reference's format)
+    or, when PyYAML is installed, a .yaml/.yml file."""
     p = pathlib.Path(path)
     text = p.read_text()
     if p.suffix in (".yaml", ".yml"):
-        import yaml
-
+        try:
+            import yaml
+        except ImportError:
+            raise ModelDescriptionError(
+                f"'{path}' is YAML, which needs the optional PyYAML package "
+                "(pip install pyyaml); or write the description as .json"
+            ) from None
         return yaml.safe_load(text)
     return json.loads(text)
 

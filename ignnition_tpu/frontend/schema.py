@@ -5,14 +5,14 @@ Re-expresses the DSL grammar the reference validates via
 stages, readout pipeline, neural_networks, learning_options. Authored fresh
 as a Python dict; semantics match the reference's constraints (same enums,
 same conditional requirements) so any model description accepted there is
-accepted here.
+accepted here. `validate_structure` checks it with a small built-in
+validator covering exactly the draft-07 keywords MODEL_SCHEMA uses, so the
+package needs no JSON-Schema library.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
-
-import jsonschema
+from typing import Any, List, Mapping, Optional
 
 _STRING = {"type": "string"}
 _POSITIVE_NUMBER = {"type": "number", "exclusiveMinimum": 0}
@@ -234,11 +234,97 @@ class ModelDescriptionError(ValueError):
     """
 
 
+class _SchemaViolation(Exception):
+    def __init__(self, message: str, path: List[Any]):
+        super().__init__(message)
+        self.message = message
+        self.path = path
+
+
+def _is_type(instance: Any, kind: str) -> bool:
+    if kind == "object":
+        return isinstance(instance, Mapping)
+    if kind == "array":
+        return isinstance(instance, list)
+    if kind == "string":
+        return isinstance(instance, str)
+    if kind == "boolean":
+        return isinstance(instance, bool)
+    if isinstance(instance, bool):  # JSON booleans are not numbers
+        return False
+    if kind == "number":
+        return isinstance(instance, (int, float))
+    if kind == "integer":
+        return isinstance(instance, int) or (
+            isinstance(instance, float) and instance.is_integer()
+        )
+    raise ValueError(f"unsupported schema type '{kind}'")
+
+
+def _first_violation(
+    instance: Any, schema: Mapping[str, Any], path: List[Any]
+) -> Optional[_SchemaViolation]:
+    """The first draft-07 violation of `schema` by `instance` (messages in
+    the jsonschema library's wording), or None. Covers the keywords
+    MODEL_SCHEMA uses: type, properties, required, enum, const, items,
+    minItems, exclusiveMinimum, allOf and if/then/else."""
+    kind = schema.get("type")
+    if kind is not None and not _is_type(instance, kind):
+        return _SchemaViolation(f"{instance!r} is not of type {kind!r}", path)
+    if "const" in schema and instance != schema["const"]:
+        return _SchemaViolation(f"{schema['const']!r} was expected", path)
+    if "enum" in schema and instance not in schema["enum"]:
+        return _SchemaViolation(
+            f"{instance!r} is not one of {list(schema['enum'])!r}", path
+        )
+    if "exclusiveMinimum" in schema and _is_type(instance, "number"):
+        lo = schema["exclusiveMinimum"]
+        if instance <= lo:
+            return _SchemaViolation(
+                f"{instance!r} is less than or equal to the minimum of {lo!r}",
+                path,
+            )
+    if isinstance(instance, list):
+        n_min = schema.get("minItems")
+        if n_min is not None and len(instance) < n_min:
+            msg = (
+                f"{instance!r} should be non-empty" if n_min == 1
+                else f"{instance!r} is too short"
+            )
+            return _SchemaViolation(msg, path)
+        if "items" in schema:
+            for i, item in enumerate(instance):
+                v = _first_violation(item, schema["items"], path + [i])
+                if v is not None:
+                    return v
+    if isinstance(instance, Mapping):
+        for key in schema.get("required", ()):
+            if key not in instance:
+                return _SchemaViolation(f"{key!r} is a required property", path)
+        for key, sub in schema.get("properties", {}).items():
+            if key in instance:
+                v = _first_violation(instance[key], sub, path + [key])
+                if v is not None:
+                    return v
+    for sub in schema.get("allOf", ()):
+        v = _first_violation(instance, sub, path)
+        if v is not None:
+            return v
+    if "if" in schema:
+        branch = (
+            schema.get("then")
+            if _first_violation(instance, schema["if"], path) is None
+            else schema.get("else")
+        )
+        if branch is not None:
+            return _first_violation(instance, branch, path)
+    return None
+
+
 def validate_structure(data: Mapping[str, Any]) -> None:
-    try:
-        jsonschema.validate(instance=data, schema=MODEL_SCHEMA)
-    except jsonschema.ValidationError as e:
-        path = "/".join(str(p) for p in e.absolute_path)
+    v = _first_violation(data, MODEL_SCHEMA, [])
+    if v is not None:
+        path = "/".join(str(p) for p in v.path)
         raise ModelDescriptionError(
-            f"model description failed schema validation at '{path}': {e.message}"
-        ) from e
+            f"model description failed schema validation at '{path}': {v.message}"
+        )

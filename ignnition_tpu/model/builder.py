@@ -118,8 +118,8 @@ _SLOT_ATTN = __import__("os").environ.get(
 # loop-invariant values directly instead of stacking a copy per iteration
 # into the scan residuals — profile-found on the attention family, whose
 # scan stacked the (invariant) dense incidence matrix per iteration.
-# Measured (v5e, bf16): attention 17.5 -> 11.9 ms (1.48x), flagship
-# 8.49 -> 7.77 (1.09x). Cost: compile time scales with num_iterations, so
+# Not yet re-measured on the GPU. Cost: compile time scales with
+# num_iterations, so
 # "auto" (default) unrolls up to _ITER_UNROLL_MAX iterations and keeps the
 # scan beyond; 1/0 force either way.
 _ITER_UNROLL_MODE = __import__("os").environ.get(
@@ -431,7 +431,7 @@ class GnnModel:
 
         compute_dtype: e.g. jnp.bfloat16 for mixed-precision — parameters and
         hidden states are cast for compute (halving the movement-bound edge
-        traffic on TPU); the optimizer's master weights stay float32 and
+        traffic); the optimizer's master weights stay float32 and
         predictions are returned as float32.
 
         edge_axis: v1 edge sharding — edges split over the named mesh axis,
@@ -631,13 +631,10 @@ class GnnModel:
                         else:
                             messages = node_table[src_idx]
                     else:
-                        # NOTE: a custom-vjp gather whose transpose runs the
-                        # sorted segment kernel exists (ops.segment.gather_rows),
-                        # but measured slower for the SOURCE side: the
-                        # permutation gather it needs costs more than the
-                        # scatter-add it saves. The DESTINATION side needs no
-                        # permutation (edge lists are destination-sorted), so
-                        # its transpose is a sorted segment sum for free.
+                        # the DESTINATION side needs no permutation (edge
+                        # lists are destination-sorted), so its transpose is a
+                        # sorted segment sum for free; the source side's
+                        # transpose sorts through the host permutation.
                         if node_axis is not None:
                             gathered_src = self._halo_gather(
                                 batch, a, new_states[src.entity], src_idx,
@@ -648,13 +645,12 @@ class GnnModel:
                                 new_states[src.entity],
                                 src_idx,
                                 perm=batch.get(f"src_perm_{a}"),
-                                row_ptr=batch.get(f"src_row_ptr_{a}"),
                             )
                         else:
                             gathered_src = new_states[src.entity][src_idx]
                         rp = batch.get(f"row_ptr_{a}")
                         gathered_dst = (
-                            seg.gather_by_dst(dst_states, dst_idx, rp)
+                            seg.gather_by_dst(dst_states, dst_idx)
                             if rp is not None and edge_axis is None
                             else dst_states[dst_idx]
                         )
@@ -718,7 +714,6 @@ class GnnModel:
                                             t,
                                             src_idx,
                                             perm=batch.get(f"src_perm_{a}"),
-                                            row_ptr=batch.get(f"src_row_ptr_{a}"),
                                         )
                                     else:
                                         part = t[src_idx]
@@ -727,7 +722,7 @@ class GnnModel:
                                     t = dst_states @ kdst
                                     rp2 = batch.get(f"row_ptr_{a}")
                                     part = (
-                                        seg.gather_by_dst(t, dst_idx, rp2)
+                                        seg.gather_by_dst(t, dst_idx)
                                         if rp2 is not None and edge_axis is None
                                         else t[dst_idx]
                                     )
@@ -1026,13 +1021,8 @@ class GnnModel:
                             [s["mask"] for s in per_source], 0
                         )
                     # single-source edge lists are destination-sorted by
-                    # construction (data layer) -> Pallas sorted-COO eligible
+                    # construction (data layer)
                     sorted_coo = len(per_source) == 1
-                    comb_rp = (
-                        batch.get(f"row_ptr_{per_source[0]['adj']}")
-                        if sorted_coo
-                        else None
-                    )
                     if agg.kind == "sum":
                         lens_for_post = (
                             compute_lens()
@@ -1207,7 +1197,7 @@ class GnnModel:
                             and per_source[0]["table"] is not None
                             and f"dense_inc_{a0}" in batch
                         ):
-                            # dense GCN: one MXU matmul over the incidence
+                            # dense GCN: one matmul over the incidence
                             # matrix replaces the gather + segment sum
                             nsum = seg.direct_segment_sum_dense(
                                 per_source[0]["table"] @ ap["kernel"],
@@ -1221,7 +1211,6 @@ class GnnModel:
                                 n_dst,
                                 indices_are_sorted=sorted_coo,
                                 axis_name=edge_axis,
-                                row_ptr=comb_rp,
                             )
                         total = nsum + dst_states
                         # host-precomputed in-degrees when available (the
@@ -1512,7 +1501,6 @@ class GnnModel:
                 batch[f"src_{a0}"],
                 batch[f"dst_{a0}"],
                 batch[f"edge_mask_{a0}"],
-                batch[f"row_ptr_{a0}"],
                 batch[f"bwd_slice_dst_{a0}"],
                 batch[f"out_lens_{a0}"],
                 n_dst,
@@ -1530,11 +1518,9 @@ class GnnModel:
                 batch[f"src_{a0}"],
                 batch[f"dst_{a0}"],
                 batch[f"edge_mask_{a0}"],
-                batch[f"row_ptr_{a0}"],
                 batch[f"dst_in_src_order_{a0}"],
                 batch[f"emask_src_order_{a0}"],
                 batch[f"src_sorted_{a0}"],
-                batch[f"src_row_ptr_{a0}"],
                 n_dst,
                 meta.nodes(s["entity"]),
             )
@@ -1543,7 +1529,6 @@ class GnnModel:
             s["dst_idx"],
             n_dst,
             indices_are_sorted=True,
-            row_ptr=batch.get(f"row_ptr_{a0}"),
         )
 
     # ------------------------------------------------------------------
@@ -1580,7 +1565,6 @@ class GnnModel:
         reference in tests/test_reference_tf_parity.py).
         """
         sorted_single = len(per_source) == 1 and per_source[0]["row_ptr"] is not None
-        row_ptr = per_source[0]["row_ptr"] if sorted_single else None
         t_src = comb_msg @ ap["kernel1"]
         # decomposed scores (attn_kernel . concat = a1 . t_src + a2 . t_dst):
         # the destination side collapses to a per-NODE scalar gathered per
@@ -1590,10 +1574,7 @@ class GnnModel:
         s_src = (t_src @ ap["attn_kernel"][:d1]).reshape(-1)
         s_dst_node = (dst_states @ ap["kernel2"]) @ ap["attn_kernel"][d1:]
         if sorted_single and edge_axis is None:
-            # width-8 broadcast: a width-1 [N]->[E] row gather costs ~10x
-            # the 8-lane one on v5e (see seg.sorted_softmax_aggregate)
-            s_dst8 = jnp.broadcast_to(s_dst_node, (s_dst_node.shape[0], 8))
-            s_dst = seg.gather_by_dst(s_dst8, comb_dst, row_ptr)[:, 0]
+            s_dst = seg.gather_by_dst(s_dst_node, comb_dst)[:, 0]
         else:
             s_dst = s_dst_node[comb_dst, 0]
         scores = jax.nn.leaky_relu(s_src + s_dst, negative_slope=0.2)
@@ -1652,7 +1633,6 @@ class GnnModel:
                 comb_dst,
                 n_dst,
                 comb_mask,
-                per_source[0]["row_ptr"],
             )
         else:
             weights = seg.segment_softmax(
@@ -1666,7 +1646,6 @@ class GnnModel:
             n_dst,
             indices_are_sorted=sorted_single,
             axis_name=edge_axis,
-            row_ptr=row_ptr if edge_axis is None else None,
         )
 
     # ------------------------------------------------------------------

@@ -151,7 +151,7 @@ def gather_time_slices(messages, row_ptr, seq, dst, max_len):
     one valid (t, d) slot, invalid slots receive zero cotangent from the
     masked scan, and padding edges' spurious credits are annihilated by the
     upstream edge-mask multiply. Without this, AD emits one scatter-add per
-    scan step, which dominates the whole training step on TPU.
+    scan step.
     """
     e = messages.shape[0]
     idx = jnp.minimum(
@@ -194,7 +194,7 @@ def masked_update_from_edges(
     per-destination sequence positions, destination d's t-th message is
     simply `messages[row_ptr[d] + t]` — gathered per time slice (see
     gather_time_slices) instead of the reference-shaped padded scatter
-    (generate_model.py:477-491), which serializes on TPU. Masked steps carry
+    (generate_model.py:477-491). Masked steps carry
     state through.
     """
     xs = gather_time_slices(messages, row_ptr, seq, dst, max_len)  # [L, N, D]
@@ -213,7 +213,7 @@ def masked_update_stacked(
 
     The step body is rematerialized (jax.checkpoint): without it, scan AD
     stacks every gate tensor per time step ([L, N, 3*units] x several) into
-    HBM on the forward and reads them back on the backward — recomputing the
+    device memory on the forward and reads them back on the backward — recomputing the
     two small gate matmuls is far cheaper than that traffic.
 
     step_fn (r5): an optional [num_dst, dim] -> [num_dst, dim'] transform
@@ -226,23 +226,10 @@ def masked_update_stacked(
     gate matmuls, and remat also drops the tail's interior activations from
     the residual stack. Exact: same math per real slot, masked slots are
     ignored by the length mask.
-
-    An opt-in fused Pallas kernel (ops/pallas/rnn_kernels.py, env
-    IGNNITION_TPU_FUSED_RNN) can run the whole GRU scan in one pass per
-    destination tile; it is OFF by default — fast in isolation but a net
-    loss inside the flagship step (see the kernel module docstring).
     """
     t_index = jnp.arange(xs.shape[0])
 
     if spec.cell_type == "GRU":
-        from ..ops.pallas import rnn_kernels as _rk
-
-        if step_fn is None and _rk.scan_eligible(
-            xs.shape[0], xs.shape[1], xs.shape[2], init_state.shape[1]
-        ):
-            return _rk.masked_gru_scan(
-                xs, lengths.astype(jnp.int32), init_state, params
-            )
 
         @jax.checkpoint
         def body(h, xt):

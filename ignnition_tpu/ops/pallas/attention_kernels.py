@@ -1,49 +1,73 @@
-"""Flash-style Pallas kernels for the dense GAT attention aggregation.
+"""Flash-style Pallas kernels (Triton route) for the dense GAT attention
+aggregation.
 
-The XLA dense path (ops/segment.py `_dense_masked_softmax_matmul`) must
-materialize the [n_dst, n_src] attention matrix in HBM for its matmuls —
-~64 MB bf16 per MP iteration at flagship scale, several round trips per
-step even after the round-4 matmul-factored backward. These kernels stream
-the incidence matrix ONCE per pass and keep every [TD, TS] score/attention
-tile in VMEM (flash-attention structure, adapted to GATv1 scores over a
-multiplicity-weighted support):
+The XLA dense path (ops/segment.py `_dense_masked_softmax_matmul`) has to
+materialize the [n_dst, n_src] attention matrix in device memory for its
+matmuls — several full passes over a 33.5M-entry matrix per message-passing
+iteration at flagship scale. The op sits far below the card's
+flop-per-byte balance point, so bytes are the cost. These kernels read the
+incidence matrix once per kernel and keep every [TD, TS] score/attention
+tile in registers (flash-attention structure, adapted to GATv1 scores over
+a multiplicity-weighted support):
 
-  forward:  for each dst tile, accumulate  z @ [x | 1]  over src tiles
-            (z = m * exp(LeakyReLU(sdst+ssrc) - stab) computed in-register),
-            then divide by the ones-column denominator. HBM traffic = one
-            read of m (+ the small vectors/tables). The denominator is
-            emitted for the backward.
-  backward: one more pass over m recomputes each attention tile from the
-            saved denominator and accumulates, all in VMEM residents:
-              d_table[s] += sum_i a[i,s] ct[i]          (MXU, per tile)
-              d_ssrc[s]  += sum_i w[i,s](da[i,s]-srow[i])
-              d_sdst[i]  += sum_s w[i,s](da[i,s]-srow[i])
-            with da = ct @ x^T computed on the MXU per tile and
-            w = a * LeakyReLU'(pre). srow rides the saved forward output
-            (sum_s dA*A = ct.out — the flash softmax-VJP row statistic).
+  forward   grid over destination tiles; a loop over source tiles
+            accumulates  z @ x  and the row sum of z, with
+            z = m * exp(LeakyReLU(sdst + ssrc) - stab) computed per tile.
+            out = acc / den; den is saved for the backward.
+  backward  split like the library's Triton flash attention (dq apart from
+            dk/dv), because blocks run in parallel and cannot share an
+            accumulator:
+              dst kernel  grid over destination tiles, loop over source
+                          tiles:  d_sdst[i] = sum_s w[i,s](da[i,s]-srow[i])
+              src kernel  grid over source tiles, loop over destination
+                          tiles:  d_table[s] = sum_i a[i,s] ct[i]
+                                  d_ssrc[s]  = sum_i w[i,s](da[i,s]-srow[i])
+            with a = z/den, da = ct @ x^T per tile, w = a * LeakyReLU'(pre)
+            and srow[i] = ct[i].out[i] (the flash softmax-VJP statistic).
 
 Stabilization uses the PER-ROW score bound lrelu(sdst[d] + max ssrc)
-(monotonicity — computable from the per-node score vectors alone, no pass
-over the matrix): exact in the sdst spread, and only an ssrc spread past
-the ~88-nat exp budget can underflow a row — the same exposure class
-`sorted_segment_softmax` documents as exact for GAT score ranges;
-exp(e - stab) <= 1 never overflows.
+(monotonicity — computable from the per-node score vectors alone): exact in
+the sdst spread, and only an ssrc spread past the ~88-nat exp budget can
+underflow a row — the same exposure `sorted_segment_softmax` documents as
+exact for GAT score ranges; exp(e - stab) <= 1 never overflows.
 
-Constraints: n_dst divisible by 8 and n_src by 128 (tile split picks the
-largest legal [TD, TS]); callers fall back to the XLA dense path otherwise
-(ops/segment.py dispatch, loud on unexpected lowering failures).
+Eligibility (`pick_tiles`): Triton's dot needs every operand dimension
+>= 16 and power-of-two tiles, so D must be 16, 32, 64 or 128 and both node
+counts multiples of 16. ops/segment.py runs the XLA dense path for any
+other shape.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple, Optional
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
 _SLOPE = 0.2  # LeakyReLU negative slope (reference a_c.py GAT scores)
+_WIDTHS = (16, 32, 64, 128)
+
+
+class FlashTiles(NamedTuple):
+    """Tiles of the three kernels.
+
+    Forward and dst-backward: [td, ts] tiles, a grid of (n_dst / td)
+    destination tiles by `split` source ranges (each block loops over its
+    range in steps of ts; XLA sums the `split` partials), `warps` warps.
+    Src-backward: the same with the roles swapped — [src_td, src_ts] tiles,
+    (n_src / src_ts) source tiles by `src_split` destination ranges."""
+
+    td: int
+    ts: int
+    split: int
+    warps: int
+    src_ts: int
+    src_td: int
+    src_split: int
+    src_warps: int
 
 
 def _pick(n, cands):
@@ -53,185 +77,274 @@ def _pick(n, cands):
     return None
 
 
-def pick_tiles(n_dst: int, n_src: int, dtype=None):
-    """Preferred legal [TD, TS] split, or None if the shape is ineligible.
-
-    Tuned on v5e at [2048, 16384] (min-of-trials, isolated fwd+bwd per
-    iteration, bf16): (512, 2048) 0.33 ms < (512, 1024) 0.40 <
-    (256, 1024) 0.74 — bigger dst tiles amortize the per-tile MXU setup
-    of the backward's D=32 contractions, bigger src tiles its accumulator
-    slicing. f32 keeps the smaller (256, 1024) split: the f32 backward's
-    per-tile intermediates at (512, 2048) exceed scoped VMEM by a hair
-    (16.02M vs the 16M limit)."""
-    if dtype is not None and jnp.dtype(dtype) == jnp.float32:
-        td = _pick(n_dst, (256, 128, 64, 32, 16, 8))
-        ts = _pick(n_src, (1024, 512, 256, 128))
-    else:
-        td = _pick(n_dst, (512, 256, 128, 64, 32, 16, 8))
-        ts = _pick(n_src, (2048, 1024, 512, 256, 128))
-    return None if td is None or ts is None else (td, ts)
+def _split(n_tiles: int, n: int, step: int, blocks: int) -> int:
+    """Largest power-of-two split of an n-long range into chunks that are a
+    whole number of `step`s, keeping the grid at <= `blocks` blocks."""
+    k = 1
+    while n_tiles * k * 2 <= blocks and n % (k * 2 * step) == 0:
+        k *= 2
+    return k
 
 
-def _tile_z(sdst_t, ssrc_t, m_t, stab_t):
-    """z = m * exp(lrelu(sdst+ssrc) - stab) for one [TD, TS] tile, f32.
+def pick_tiles(n_dst: int, n_src: int, d: int) -> Optional[FlashTiles]:
+    """Power-of-two tiles for an [n_dst, n_src] matrix and width-d tables,
+    or None when the shape is ineligible.
 
-    The kernels are VPU-bound on this chain (33.5M entries x 15 passes at
-    flagship scale), so it is kept minimal: stab is the PER-ROW bound
-    lrelu(sdst + max ssrc) >= every e in the row (so the sdst spread can
-    never underflow a row — only an >~88-nat ssrc spread can, the exposure
-    class sorted_segment_softmax documents as exact for GAT ranges), hence
-    exp(e - stab) <= 1 — finite — and the absent-edge mask needs no
-    select, the m multiply alone zeroes it (no inf * 0 hazard)."""
-    pre = sdst_t + ssrc_t  # (TD,1)+(1,TS) broadcast
+    Small destination counts (2048 at flagship size) give too few tiles to
+    fill the card, so each kernel also splits its loop dimension across
+    blocks and XLA adds the partial sums (a few MB). The tile shapes and
+    grid sizes (about 1024 forward / dst-backward and 2048 src-backward
+    blocks) are the fastest of a sweep on an H100 at [2048, 16384], D=32,
+    bf16 (PERF.md)."""
+    if d not in _WIDTHS:
+        return None
+    td = _pick(n_dst, (64, 32, 16))
+    ts = _pick(n_src, (128, 64, 32, 16) if d <= 64 else (64, 32, 16))
+    src_ts = _pick(n_src, (64, 32, 16))
+    src_td = _pick(n_dst, (32, 16))
+    if None in (td, ts, src_ts, src_td):
+        return None
+    return FlashTiles(
+        td, ts, _split(n_dst // td, n_src, ts, 1024), 4,
+        src_ts, src_td, _split(n_src // src_ts, n_dst, src_td, 2048), 4,
+    )
+
+
+def _tile_z(sdst, ssrc, m, stab):
+    """z = m * exp(lrelu(sdst + ssrc) - stab) for one [TD, TS] tile, f32,
+    plus the pre-activation (its sign picks the LeakyReLU slope).
+
+    stab is the per-row bound lrelu(sdst + max ssrc) >= every e in the row,
+    so exp(e - stab) <= 1 stays finite and the absent-edge mask needs no
+    select: the m multiply alone zeroes it (no inf * 0 hazard)."""
+    pre = sdst[:, None] + ssrc[None, :]
     e = jnp.maximum(pre, _SLOPE * pre)  # lrelu, branch-free (slope < 1)
-    return jnp.exp(e - stab_t) * m_t.astype(jnp.float32), pre
+    return jnp.exp(e - stab[:, None]) * m.astype(jnp.float32), pre
 
 
-def _prec(dtype):
-    """The repo's dense-path precision policy (ops/segment._dot): f32
-    matmuls run HIGHEST (v5e lowers DEFAULT f32 dots to bf16 passes),
-    bf16 runs a single DEFAULT pass."""
-    return (
+def _dot(a, b, contract, dtype):
+    """The repo's dense-path precision policy (ops/segment._dot): f32 inputs
+    run HIGHEST, which the Triton route lowers to IEEE f32 instead of TF32;
+    bf16 runs a single DEFAULT pass. f32 accumulation either way."""
+    prec = (
         jax.lax.Precision.HIGHEST
         if dtype == jnp.float32
         else jax.lax.Precision.DEFAULT
     )
-
-
-def _fwd_kernel(stab_ref, sdst_ref, ssrc_ref, xe_ref, m_ref,
-                out_ref, den_ref, acc):
-    j = pl.program_id(1)
-    nj = pl.num_programs(1)
-
-    @pl.when(j == 0)
-    def _():
-        acc[:, :] = jnp.zeros_like(acc)
-
-    z, _ = _tile_z(sdst_ref[:, :], ssrc_ref[:, :], m_ref[:, :],
-                   stab_ref[:, :])
-    acc[:, :] += jax.lax.dot_general(
-        z.astype(xe_ref.dtype), xe_ref[:, :],
-        (((1,), (0,)), ((), ())),
-        precision=_prec(xe_ref.dtype),
+    return jax.lax.dot_general(
+        a, b, (contract, ((), ())), precision=prec,
         preferred_element_type=jnp.float32,
     )
 
-    @pl.when(j == nj - 1)
-    def _():
-        den = acc[:, -1:]
-        out_ref[:, :] = (
-            acc[:, :-1] / jnp.maximum(den, 1e-30)
-        ).astype(out_ref.dtype)
-        den_ref[:, :] = den
+
+def _call(kernel, name, grid, in_specs, out_specs, out_shape, warps,
+          interpret):
+    return pl.pallas_call(
+        kernel,
+        grid=grid,
+        in_specs=in_specs,
+        out_specs=out_specs,
+        out_shape=out_shape,
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(
+            num_warps=warps, num_stages=2
+        ),
+        interpret=interpret,
+        name=name,
+    )
 
 
-@functools.partial(jax.jit, static_argnames=("td", "ts", "interpret"))
-def flash_gat_forward(ssrc, sdst, x, m, stab, td, ts, interpret=False):
-    """(out [n_dst, D], den [n_dst, 1] f32). `stab` is the [n_dst] per-row
-    score bound (segment.py _flash_stab)."""
+# --------------------------------------------------------------------------
+# forward
+# --------------------------------------------------------------------------
+
+
+def _fwd_kernel(stab_ref, sdst_ref, ssrc_ref, x_ref, m_ref, acc_ref, den_ref,
+                *, ts):
+    td, chunk = m_ref.shape
+    d = x_ref.shape[1]
+    sdst = sdst_ref[...]
+    stab = stab_ref[...]
+
+    def body(j, carry):
+        acc, den = carry
+        cols = pl.ds(j * ts, ts)
+        z, _ = _tile_z(sdst, ssrc_ref[cols], m_ref[:, cols], stab)
+        acc = acc + _dot(z.astype(x_ref.dtype), x_ref[cols, :],
+                         ((1,), (0,)), x_ref.dtype)
+        return acc, den + jnp.sum(z, axis=1)
+
+    acc, den = jax.lax.fori_loop(
+        0, chunk // ts, body,
+        (jnp.zeros((td, d), jnp.float32), jnp.zeros((td,), jnp.float32)),
+    )
+    acc_ref[...] = acc
+    den_ref[...] = den
+
+
+def _fwd_partials(ssrc, sdst, x, m, stab, t, interpret):
     n_dst, n_src = m.shape
     d = x.shape[1]
-    xe = jnp.concatenate([x, jnp.ones((n_src, 1), x.dtype)], axis=1)
-    grid = (n_dst // td, n_src // ts)
-    return pl.pallas_call(
-        _fwd_kernel,
-        grid=grid,
-        interpret=interpret,
-        in_specs=[
-            pl.BlockSpec((td, 1), lambda i, j: (i, 0)),
-            pl.BlockSpec((td, 1), lambda i, j: (i, 0)),
-            pl.BlockSpec((1, ts), lambda i, j: (0, j)),
-            pl.BlockSpec((ts, d + 1), lambda i, j: (j, 0)),
-            pl.BlockSpec((td, ts), lambda i, j: (i, j)),
+    chunk = n_src // t.split
+    row = pl.BlockSpec((t.td,), lambda i, k: (i,))
+    return _call(
+        functools.partial(_fwd_kernel, ts=t.ts), "flash_gat_fwd",
+        (n_dst // t.td, t.split),
+        [
+            row,
+            row,
+            pl.BlockSpec((chunk,), lambda i, k: (k,)),
+            pl.BlockSpec((chunk, d), lambda i, k: (k, 0)),
+            pl.BlockSpec((t.td, chunk), lambda i, k: (i, k)),
         ],
-        out_specs=[
-            pl.BlockSpec((td, d), lambda i, j: (i, 0)),
-            pl.BlockSpec((td, 1), lambda i, j: (i, 0)),
+        [
+            pl.BlockSpec((None, t.td, d), lambda i, k: (k, i, 0)),
+            pl.BlockSpec((None, t.td), lambda i, k: (k, i)),
         ],
-        out_shape=[
-            jax.ShapeDtypeStruct((n_dst, d), x.dtype),
-            jax.ShapeDtypeStruct((n_dst, 1), jnp.float32),
+        [
+            jax.ShapeDtypeStruct((t.split, n_dst, d), jnp.float32),
+            jax.ShapeDtypeStruct((t.split, n_dst), jnp.float32),
         ],
-        scratch_shapes=[pltpu.VMEM((td, d + 1), jnp.float32)],
-    )(stab.reshape(-1, 1).astype(jnp.float32),
-      sdst.reshape(-1, 1).astype(jnp.float32),
-      ssrc.reshape(1, -1).astype(jnp.float32), xe, m)
+        t.warps, interpret,
+    )(_f32(stab), _f32(sdst), _f32(ssrc), x, m)
 
 
-def _bwd_kernel(stab_ref, sdst_ref, ssrc_ref, x_ref, m_ref, den_ref,
-                ct_ref, srow_ref, dtab_ref, dsdst_ref):
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-    ts = x_ref.shape[0]
+@functools.partial(jax.jit, static_argnames=("interpret", "tiles"))
+def flash_gat_forward(ssrc, sdst, x, m, stab, interpret=False, tiles=None):
+    """(out [n_dst, D], den [n_dst]), both f32. `stab` is the [n_dst]
+    per-row score bound (segment.py _flash_stab)."""
+    t = tiles or _tiles(*m.shape, x.shape[1])
+    acc, den = _fwd_partials(ssrc, sdst, x, m, stab, t, interpret)
+    den = jnp.sum(den, axis=0)
+    return jnp.sum(acc, axis=0) / jnp.maximum(den, 1e-30)[:, None], den
 
-    @pl.when((i == 0) & (j == 0))
-    def _():
-        dtab_ref[:, :] = jnp.zeros_like(dtab_ref)
 
-    @pl.when(j == 0)
-    def _():
-        dsdst_ref[:, :] = jnp.zeros_like(dsdst_ref)
+# --------------------------------------------------------------------------
+# backward
+# --------------------------------------------------------------------------
 
-    z, pre = _tile_z(sdst_ref[:, :], ssrc_ref[:, :], m_ref[:, :],
-                     stab_ref[:, :])
-    a = z / jnp.maximum(den_ref[:, :], 1e-30)  # (TD, TS) f32
-    ab = a.astype(ct_ref.dtype)
-    ct = ct_ref[:, :]
-    xt = x_ref[:, :]
-    # da[i, s] = ct[i] . x[s] — per-tile on the MXU, never in HBM
-    da = jax.lax.dot_general(
-        ct, xt, (((1,), (1,)), ((), ())),
-        precision=_prec(xt.dtype),
-        preferred_element_type=jnp.float32,
+
+def _bwd_dst_kernel(stab_ref, sdst_ref, den_ref, srow_ref, ct_ref, ssrc_ref,
+                    x_ref, m_ref, dsdst_ref, *, ts):
+    td, chunk = m_ref.shape
+    sdst = sdst_ref[...]
+    stab = stab_ref[...]
+    inv_den = 1.0 / jnp.maximum(den_ref[...], 1e-30)
+    srow = srow_ref[...]
+    ct = ct_ref[...]
+
+    def body(j, acc):
+        cols = pl.ds(j * ts, ts)
+        z, pre = _tile_z(sdst, ssrc_ref[cols], m_ref[:, cols], stab)
+        a = z * inv_den[:, None]
+        da = _dot(ct, x_ref[cols, :], ((1,), (1,)), x_ref.dtype)
+        w = a * jnp.where(pre > 0, 1.0, _SLOPE)
+        return acc + jnp.sum(w * (da - srow[:, None]), axis=1)
+
+    dsdst_ref[...] = jax.lax.fori_loop(
+        0, chunk // ts, body, jnp.zeros((td,), jnp.float32)
     )
-    w = a * jnp.where(pre > 0, 1.0, _SLOPE)
-    dp = w * (da - srow_ref[:, :])
-    # d_table rows for this src tile (+ the d_ssrc column): contract the
-    # dst-tile axis of both on the MXU
-    dtab_tile = jax.lax.dot_general(
-        ab, ct, (((0,), (0,)), ((), ())),
-        precision=_prec(xt.dtype),
-        preferred_element_type=jnp.float32,
-    )  # (TS, D)
-    dssrc_tile = jnp.sum(dp, axis=0)[:, None]  # (TS, 1)
-    base = pl.multiple_of(j * ts, ts)
-    dtab_ref[pl.ds(base, ts), :] += jnp.concatenate(
-        [dtab_tile, dssrc_tile], axis=1
-    )
-    dsdst_ref[:, :] += jnp.sum(dp, axis=1, keepdims=True)
 
 
-@functools.partial(jax.jit, static_argnames=("td", "ts", "interpret"))
-def flash_gat_backward(ssrc, sdst, x, m, stab, den, ct, srow, td, ts,
-                       interpret=False):
-    """(dtab_plus [n_src, D+1] f32 — [:, :D] = d_table, [:, D] = d_ssrc —
-    and d_sdst [n_dst, 1] f32)."""
+def _bwd_dst_partials(ssrc, sdst, x, m, stab, den, ct, srow, t, interpret):
     n_dst, n_src = m.shape
     d = x.shape[1]
-    grid = (n_dst // td, n_src // ts)
-    return pl.pallas_call(
-        _bwd_kernel,
-        grid=grid,
-        interpret=interpret,
-        in_specs=[
-            pl.BlockSpec((td, 1), lambda i, j: (i, 0)),
-            pl.BlockSpec((td, 1), lambda i, j: (i, 0)),
-            pl.BlockSpec((1, ts), lambda i, j: (0, j)),
-            pl.BlockSpec((ts, d), lambda i, j: (j, 0)),
-            pl.BlockSpec((td, ts), lambda i, j: (i, j)),
-            pl.BlockSpec((td, 1), lambda i, j: (i, 0)),
-            pl.BlockSpec((td, d), lambda i, j: (i, 0)),
-            pl.BlockSpec((td, 1), lambda i, j: (i, 0)),
+    chunk = n_src // t.split
+    row = pl.BlockSpec((t.td,), lambda i, k: (i,))
+    return _call(
+        functools.partial(_bwd_dst_kernel, ts=t.ts), "flash_gat_bwd_dst",
+        (n_dst // t.td, t.split),
+        [
+            row, row, row, row,
+            pl.BlockSpec((t.td, d), lambda i, k: (i, 0)),
+            pl.BlockSpec((chunk,), lambda i, k: (k,)),
+            pl.BlockSpec((chunk, d), lambda i, k: (k, 0)),
+            pl.BlockSpec((t.td, chunk), lambda i, k: (i, k)),
         ],
-        out_specs=[
-            pl.BlockSpec((n_src, d + 1), lambda i, j: (0, 0)),
-            pl.BlockSpec((td, 1), lambda i, j: (i, 0)),
+        pl.BlockSpec((None, t.td), lambda i, k: (k, i)),
+        jax.ShapeDtypeStruct((t.split, n_dst), jnp.float32),
+        t.warps, interpret,
+    )(stab, sdst, den, srow, ct, ssrc, x, m)
+
+
+def _bwd_src_kernel(ssrc_ref, x_ref, stab_ref, sdst_ref, den_ref, srow_ref,
+                    ct_ref, m_ref, dtab_ref, dssrc_ref, *, td):
+    chunk, ts = m_ref.shape
+    d = x_ref.shape[1]
+    ssrc = ssrc_ref[...]
+    x = x_ref[...]
+
+    def body(i, carry):
+        dtab, dssrc = carry
+        rows = pl.ds(i * td, td)
+        z, pre = _tile_z(sdst_ref[rows], ssrc, m_ref[rows, :], stab_ref[rows])
+        a = z * (1.0 / jnp.maximum(den_ref[rows], 1e-30))[:, None]
+        ct = ct_ref[rows, :]
+        da = _dot(ct, x, ((1,), (1,)), x_ref.dtype)
+        w = a * jnp.where(pre > 0, 1.0, _SLOPE)
+        dp = w * (da - srow_ref[rows][:, None])
+        dtab = dtab + _dot(a.astype(ct.dtype), ct, ((0,), (0,)), x_ref.dtype)
+        return dtab, dssrc + jnp.sum(dp, axis=0)
+
+    dtab, dssrc = jax.lax.fori_loop(
+        0, chunk // td, body,
+        (jnp.zeros((ts, d), jnp.float32), jnp.zeros((ts,), jnp.float32)),
+    )
+    dtab_ref[...] = dtab
+    dssrc_ref[...] = dssrc
+
+
+def _bwd_src_partials(ssrc, sdst, x, m, stab, den, ct, srow, t, interpret):
+    n_dst, n_src = m.shape
+    d = x.shape[1]
+    chunk = n_dst // t.src_split
+    col = pl.BlockSpec((t.src_ts,), lambda j, k: (j,))
+    part = pl.BlockSpec((chunk,), lambda j, k: (k,))
+    return _call(
+        functools.partial(_bwd_src_kernel, td=t.src_td), "flash_gat_bwd_src",
+        (n_src // t.src_ts, t.src_split),
+        [
+            col,
+            pl.BlockSpec((t.src_ts, d), lambda j, k: (j, 0)),
+            part, part, part, part,
+            pl.BlockSpec((chunk, d), lambda j, k: (k, 0)),
+            pl.BlockSpec((chunk, t.src_ts), lambda j, k: (k, j)),
         ],
-        out_shape=[
-            jax.ShapeDtypeStruct((n_src, d + 1), jnp.float32),
-            jax.ShapeDtypeStruct((n_dst, 1), jnp.float32),
+        [
+            pl.BlockSpec((None, t.src_ts, d), lambda j, k: (k, j, 0)),
+            pl.BlockSpec((None, t.src_ts), lambda j, k: (k, j)),
         ],
-    )(stab.reshape(-1, 1).astype(jnp.float32),
-      sdst.reshape(-1, 1).astype(jnp.float32),
-      ssrc.reshape(1, -1).astype(jnp.float32), x, m, den,
-      ct.astype(x.dtype), srow)
+        [
+            jax.ShapeDtypeStruct((t.src_split, n_src, d), jnp.float32),
+            jax.ShapeDtypeStruct((t.src_split, n_src), jnp.float32),
+        ],
+        t.src_warps, interpret,
+    )(ssrc, x, stab, sdst, den, srow, ct, m)
+
+
+@functools.partial(jax.jit, static_argnames=("interpret", "tiles"))
+def flash_gat_backward(ssrc, sdst, x, m, stab, den, ct, srow,
+                       interpret=False, tiles=None):
+    """(d_ssrc [n_src], d_sdst [n_dst], d_table [n_src, D]), all f32.
+    `srow` is the [n_dst] row statistic ct[i].out[i]."""
+    t = tiles or _tiles(*m.shape, x.shape[1])
+    ct = ct.astype(x.dtype)
+    args = (_f32(ssrc), _f32(sdst), x, m, _f32(stab), _f32(den), ct,
+            _f32(srow), t, interpret)
+    dsdst = jnp.sum(_bwd_dst_partials(*args), axis=0)
+    dtab, dssrc = _bwd_src_partials(*args)
+    return jnp.sum(dssrc, axis=0), dsdst, jnp.sum(dtab, axis=0)
+
+
+def _tiles(n_dst, n_src, d) -> FlashTiles:
+    t = pick_tiles(n_dst, n_src, d)
+    if t is None:
+        raise ValueError(
+            f"flash-GAT kernels do not take an [{n_dst}, {n_src}] incidence "
+            f"matrix with width-{d} tables (see pick_tiles)"
+        )
+    return t
+
+
+def _f32(v):
+    return v.reshape(-1).astype(jnp.float32)

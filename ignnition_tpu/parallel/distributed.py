@@ -1,17 +1,17 @@
-"""Multi-host (pod-slice) initialization and mesh construction.
+"""Multi-host initialization and mesh construction.
 
-The reference is strictly single-process (SURVEY §2.4). On a TPU pod slice,
-each host runs the same program; `initialize()` wires them into one JAX
-runtime (jax.distributed), after which `jax.devices()` spans the whole slice
+The reference is strictly single-process (SURVEY §2.4). On several GPU
+hosts, each host runs the same program; `initialize()` wires them into one
+JAX runtime (jax.distributed), after which `jax.devices()` spans every host
 and the ('data','model') mesh from `make_pod_mesh` lays shardings out so the
-edge-partition ('model') axis stays within a host's ICI domain while data
-parallelism spans hosts — collectives ride ICI first, DCN only across
-data-parallel replicas.
+edge-partition ('model') axis stays within a host's NVLink domain while
+data parallelism spans hosts — only per-step gradient all-reduces cross the
+host network.
 
-Typical multi-host launch (same script on every host):
+Typical multi-host launch (same script on every host, its own process_id):
 
     from ignnition_tpu.parallel import distributed
-    distributed.initialize()              # env-driven (TPU pods auto-detect)
+    distributed.initialize("host0:1234", num_processes=2, process_id=0)
     mesh = distributed.make_pod_mesh(model_axis_per_host=2)
     runner = ig.Runner(model, mesh=mesh)
     runner.train_and_evaluate()
@@ -34,8 +34,9 @@ def initialize(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> None:
-    """Initialize jax.distributed. With no arguments, TPU pod environments
-    auto-detect coordinator/process topology from the environment."""
+    """Initialize jax.distributed. On GPU hosts nothing announces the
+    cluster: pass the coordinator address, process count and this
+    process's id."""
     kwargs = {}
     if coordinator_address is not None:
         kwargs["coordinator_address"] = coordinator_address
@@ -50,9 +51,9 @@ def make_pod_mesh(model_axis_per_host: int = 1) -> Mesh:
     """('data','model') mesh over all devices of the (initialized) runtime.
 
     The 'model' (edge-partition) axis is kept within each host's local
-    devices so its per-aggregation all-reduces ride ICI; the 'data' axis
-    spans the rest (including cross-host DCN, where only per-step gradient
-    all-reduces travel).
+    devices so its per-aggregation collectives stay on the host's NVLink;
+    the 'data' axis spans the rest (including the cross-host network, where
+    only per-step gradient all-reduces travel).
     """
     devices = jax.devices()
     local = jax.local_device_count()

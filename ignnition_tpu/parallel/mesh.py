@@ -1,9 +1,11 @@
 """Device mesh helpers.
 
-The reference has no distribution whatsoever (SURVEY §2.4). The TPU-native
-scaling design: a 2-D mesh over ('data', 'model') — graph-batch data
-parallelism along 'data', edge-partitioned aggregation along 'model' —
-expressed with jax.sharding + shard_map so XLA collectives ride ICI.
+The reference has no distribution whatsoever (SURVEY §2.4). The scaling
+design: a 2-D mesh over ('data', 'model') — graph-batch data parallelism
+along 'data', edge-partitioned aggregation along 'model' — expressed with
+jax.sharding + shard_map so XLA emits the collectives (NCCL on GPUs). The
+GPUs of one host are joined all to all, so the mesh is a plain reshape of
+the device list.
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
 """Parallel training/inference steps over a ('data', 'model') mesh.
 
 Two first-class strategies (absent from the reference, which is strictly
-single-process — SURVEY §2.4; introduced per the TPU north star):
+single-process — SURVEY §2.4):
 
   * **Graph-batch data parallelism** ('data' axis): each device gets one
     merged, identically-padded GraphBatch (stacked on a leading axis);
-    gradients all-reduce with `psum` over ICI.
+    gradients all-reduce with `psum`.
   * **Edge-partitioned model parallelism** ('model' axis): each adjacency's
     COO edge arrays are sharded along the edge dimension while node states
     stay replicated; every segment aggregation computes a local partial and

@@ -12,7 +12,10 @@ builder — the artifact is the executable.
 Artifact directory layout:
   MANIFEST.json   format version, label/denormalization names, label domain,
                   input signature (name -> shape/dtype), platforms
-  forward.bin     jax.export serialized StableHLO (versioned, stable format)
+  forward.bin     the exported program: serialized StableHLO (VHLO, a stable
+                  format) of jax.export's lowering
+  forward.json    what jax.export needs beside it to call the program
+                  (avals, platforms, calling convention; _save_exported)
   params.npz      parameter leaves (p00000, p00001, ...)
   params_tree.json nested structure with leaf indices (dict/list/tuple)
   meta.json       the BatchMeta the shapes were specialized to
@@ -20,8 +23,8 @@ Artifact directory layout:
 Notes:
 - The exported program is specialized to the lowering platform(s). Fast
   paths chosen at trace time (Pallas kernels, dense incidence) follow the
-  platform the export runs under: export on a TPU host (or pass
-  platforms=("tpu",)) for the TPU-optimal program.
+  platform the export runs under: export on a GPU host (or pass
+  platforms=("cuda",)) for the GPU program with its kernels.
 - Denormalization runs OUTSIDE the artifact (host-side, by registry name),
   mirroring the reference's predict denorm (f_o.py:209-213).
 """
@@ -36,7 +39,9 @@ import numpy as np
 
 from .data.graph import BatchMeta, infer_label_domain
 
-FORMAT_VERSION = 1
+# 2: forward.bin holds the bare StableHLO module, forward.json its call
+# signature (1 held jax.export's flatbuffers serialization)
+FORMAT_VERSION = 2
 
 # --------------------------------------------------------------------------
 # pytree <-> (leaves, json structure)
@@ -45,7 +50,10 @@ FORMAT_VERSION = 1
 
 def _encode_tree(tree: Any, leaves: List[np.ndarray]) -> Any:
     """Replace array leaves with {"__leaf__": idx}; keep dict/list/tuple
-    structure JSON-encodable (tuple tagged to round-trip exactly)."""
+    structure JSON-encodable (tuple tagged to round-trip exactly; None, an
+    empty subtree to JAX, stays None)."""
+    if tree is None:
+        return None
     if isinstance(tree, Mapping):
         return {k: _encode_tree(v, leaves) for k, v in tree.items()}
     if isinstance(tree, tuple):
@@ -57,6 +65,8 @@ def _encode_tree(tree: Any, leaves: List[np.ndarray]) -> Any:
 
 
 def _decode_tree(node: Any, leaves: Sequence[np.ndarray]) -> Any:
+    if node is None:
+        return None
     if isinstance(node, dict):
         if "__leaf__" in node:
             return leaves[node["__leaf__"]]
@@ -110,6 +120,87 @@ def _serving_arrays(arrays: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
 
 
 # --------------------------------------------------------------------------
+# the exported program on disk
+# --------------------------------------------------------------------------
+#
+# jax.export's own `serialize` needs the flatbuffers package; this format
+# needs nothing beyond JAX. It covers what export_serving produces: one
+# device, no effects, static shapes, no VJP. Rebuilding the Exported fills
+# in fields JAX keeps private; _load_exported is the one place that does.
+
+
+def _save_exported(exported, out_dir: str) -> None:
+    if exported.nr_devices != 1 or exported.ordered_effects or (
+        exported.unordered_effects
+    ):
+        raise ValueError("serving artifacts hold single-device programs "
+                         "without effects")
+    with open(os.path.join(out_dir, "forward.bin"), "wb") as f:
+        f.write(bytes(exported.mlir_module_serialized))
+    meta = {
+        "fun_name": exported.fun_name,
+        "in_avals": [[list(a.shape), str(a.dtype)] for a in exported.in_avals],
+        "out_avals": [[list(a.shape), str(a.dtype)]
+                      for a in exported.out_avals],
+        "platforms": list(exported.platforms),
+        "disabled_custom_calls": [
+            c.is_custom_call() for c in exported.disabled_safety_checks
+            if c.is_custom_call()
+        ],
+        "calling_convention_version": exported.calling_convention_version,
+        "module_kept_var_idx": list(exported.module_kept_var_idx),
+        "uses_global_constants": exported.uses_global_constants,
+    }
+    with open(os.path.join(out_dir, "forward.json"), "w") as f:
+        json.dump(meta, f, indent=1)
+
+
+def _load_exported(out_dir: str, params, inputs: Mapping[str, Any]):
+    """The jax.export.Exported written by _save_exported; `params` and
+    `inputs` give the structure of the program's (params, batch) argument."""
+    import jax
+    from jax import export as jax_export
+
+    with open(os.path.join(out_dir, "forward.json")) as f:
+        meta = json.load(f)
+    with open(os.path.join(out_dir, "forward.bin"), "rb") as f:
+        module = f.read()
+    aval = lambda sd: jax.core.ShapedArray(tuple(sd[0]), np.dtype(sd[1]))
+    in_avals = tuple(aval(a) for a in meta["in_avals"])
+    out_avals = tuple(aval(a) for a in meta["out_avals"])
+    in_tree = jax.tree_util.tree_structure(((params, dict(inputs)), {}))
+    if in_tree.num_leaves != len(in_avals):
+        raise ValueError(f"corrupt serving artifact in '{out_dir}': "
+                         f"{in_tree.num_leaves} inputs vs "
+                         f"{len(in_avals)} exported")
+    return jax_export.Exported(
+        fun_name=meta["fun_name"],
+        in_tree=in_tree,
+        in_avals=in_avals,
+        out_tree=jax.tree_util.tree_structure(0),
+        out_avals=out_avals,
+        _has_named_shardings=True,
+        _in_named_shardings=(None,) * len(in_avals),
+        _out_named_shardings=(None,) * len(out_avals),
+        in_shardings_hlo=(None,) * len(in_avals),
+        out_shardings_hlo=(None,) * len(out_avals),
+        nr_devices=1,
+        platforms=tuple(meta["platforms"]),
+        ordered_effects=(),
+        unordered_effects=(),
+        disabled_safety_checks=tuple(
+            jax_export.DisabledSafetyCheck.custom_call(c)
+            for c in meta["disabled_custom_calls"]
+        ),
+        mlir_module_serialized=module,
+        calling_convention_version=meta["calling_convention_version"],
+        module_kept_var_idx=tuple(meta["module_kept_var_idx"]),
+        uses_global_constants=meta["uses_global_constants"],
+        _get_vjp=None,
+    )
+
+
+# --------------------------------------------------------------------------
 # export
 # --------------------------------------------------------------------------
 
@@ -129,7 +220,7 @@ def export_serving(
 
     arrays: one example batch (only shapes/dtypes are used for the input
     signature; labels are stripped). platforms: jax.export lowering
-    platforms, e.g. ("tpu",); default = current backend. description: the
+    platforms, e.g. ("cuda",); default = current backend. description: the
     raw model-description dict — stored in the artifact so
     `ServingModel.build_batch` can batch raw samples without external
     files.
@@ -150,20 +241,17 @@ def export_serving(
     kw = {}
     if platforms is not None:
         kw["platforms"] = tuple(platforms)
-    # the Pallas lowerings (segment kernels, flash-GAT) serialize as Mosaic
-    # custom calls; jax.export's safety check rejects unknown custom calls
+    # the Pallas (Triton) flash-GAT kernels serialize as custom calls to
+    # this target; jax.export's safety check rejects unknown custom calls
     # unless the target is explicitly allowed. These are OUR kernels, and
     # the artifact is platform-tagged, so allowing them is sound.
     kw["disabled_checks"] = [
-        jax_export.DisabledSafetyCheck.custom_call("tpu_custom_call"),
+        jax_export.DisabledSafetyCheck.custom_call("__gpu$xla.gpu.triton"),
         jax_export.DisabledSafetyCheck.custom_call("Sharding"),
     ]
     exported = jax_export.export(jax.jit(fwd), **kw)(*specs)
-    blob = exported.serialize()
-
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "forward.bin"), "wb") as f:
-        f.write(bytes(blob))
+    _save_exported(exported, out_dir)
 
     host_params = jax.tree.map(np.asarray, params)
     leaves: List[np.ndarray] = []
@@ -336,20 +424,19 @@ class ServingModel:
 
 
 def load_serving(out_dir: str) -> ServingModel:
-    from jax import export as jax_export
-
     with open(os.path.join(out_dir, "MANIFEST.json")) as f:
         manifest = json.load(f)
     if manifest.get("format") != FORMAT_VERSION:
         raise ValueError(
             f"unsupported serving artifact format {manifest.get('format')}"
         )
-    with open(os.path.join(out_dir, "forward.bin"), "rb") as f:
-        exported = jax_export.deserialize(bytearray(f.read()))
     with np.load(os.path.join(out_dir, "params.npz")) as z:
         leaves = [z[f"p{i:05d}"] for i in range(len(z.files))]
     with open(os.path.join(out_dir, "params_tree.json")) as f:
         params = _decode_tree(json.load(f), leaves)
+    exported = _load_exported(
+        out_dir, params, {k: 0 for k in manifest["inputs"]}
+    )
     with open(os.path.join(out_dir, "meta.json")) as f:
         meta = _meta_from_json(json.load(f))
     description = None

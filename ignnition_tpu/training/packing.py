@@ -2,11 +2,9 @@
 per dtype instead of one transfer per array.
 
 A merged GraphBatch is a dict of ~40 small arrays (features, edge lists,
-masks, index companions). Host->device transfer on TPU runtimes charges a
-fixed per-array cost that dwarfs the bytes at streaming batch sizes
-(measured on this backend: ~0.06 ms/array — a 40-leaf 3 MB batch costs
-7-14 ms while a single contiguous 3 MB buffer costs 1.8 ms; PERF.md
-'Streaming H2D'). Packing concatenates all arrays of a dtype into one flat
+masks, index companions). Host->device transfer can charge a fixed
+per-array cost that dwarfs the bytes at streaming batch sizes (not
+measured on the GPU). Packing concatenates all arrays of a dtype into one flat
 host buffer; the jitted step unpacks with STATIC slices + reshapes, which
 XLA fuses into the consumers — the device-side unpack is free.
 

@@ -1,136 +1,78 @@
-"""Speed-of-light accounting for a training step (BASELINE.md's "edges/sec
-per chip at speed-of-light SpMM" target).
+"""Speed-of-light accounting for a training step.
 
 Computes, from the IR + a BatchMeta, an itemized lower bound on the
 MANDATORY work of one full training step (forward + backward + optimizer):
 
-  * HBM bytes — every value stream an implementation must move at least
-    once, under an OPTIMISTIC fusion convention (anything that fits VMEM is
-    assumed resident; node-rate tables count once per iteration; edge-rate
-    streams count once per direction of AD):
+  * device-memory bytes — every value stream an implementation must move
+    at least once, under an OPTIMISTIC fusion convention (anything that
+    fits on-chip is assumed resident; node-rate tables count once per
+    iteration; edge-rate streams count once per direction of AD):
       - aggregation input: the per-edge message stream E*D when the message
-        is genuinely per-edge, or for SEQUENCE (ordered/interleave)
+        is genuinely per-edge, or for SEQUENCE (ordered/interleave/concat)
         aggregations whose RNN consumes per-slot inputs; node tables
         (n*D) when a source-local message feeds a commutative aggregation
-        (sum/attention/convolution/concat) that can stream from the table;
+        (sum/attention/convolution) that can stream from the table;
+      - dense incidence matrices where that lowering applies (1 byte per
+        entry, once per read: 2 for a sum, 3 for the flash attention
+        kernels);
       - index companions: E * 4 bytes, read in forward and backward;
       - updated state tables: n_d*D written fwd, cotangent read bwd;
       - per-edge MLP activations: E*units per interior layer boundary
         (1x fwd + 2x bwd: residual read + cotangent);
       - readout activations at domain row rate;
       - optimizer: ~20 bytes/param (p/m/v read+write, grad read).
-  * MXU FLOPs — 2*rows*in*out per Dense matmul, 12*D^2 per GRU element
+  * FLOPs — 2*rows*in*out per Dense matmul, 12*D^2 per GRU element
     (16*D^2 LSTM), x3 for training (backward of a matmul is ~2x forward);
     aggregation adds E*D.
-  * gather rows (INFORMATIONAL, not part of the bound) — rows moved through
-    data-dependent indices per step. TPU random row access is descriptor-
-    bound at ~0.8-2 ns/row (PERF.md 'The XLA gather cliff'), a cost the
-    two-resource roofline cannot see; this count lets the reader reconstruct
-    the empirical access-pattern floor that explains measured-vs-SoL gaps.
-    The constant is a HARDWARE bound, not an XLA artifact
-    (tools/exp_gather_floor.py; PERF.md 'The gather floor is hardware'):
-    sub-tile data-dependent DMAs are inexpressible on this architecture
-    (Mosaic requires 8-sublane x 128-lane-aligned slices, so the smallest
-    kernel-issuable unit is a 4 KB tile), a Pallas rolling-DMA loop at that
-    granularity issues descriptors 2.3-4x SLOWER than XLA's gather moves
-    the same blocks, and XLA's per-row cost is flat in row width
-    (2.4/2.2/2.2 ns/row at d=8/32/128 f32) — pure descriptor cost that no
-    alternative issue path undercuts.
-
-  * rnn scan floor (r5) — scanned (sequence) recurrent updates are charged
-    a CALIBRATED per-scan cost (HardwareSpec.rnn_scan_ps_per_elem /
-    rnn_scan_us_per_step, from tools/exp_rnn_floor.py) instead of the
-    FLOPs+seq_stream items: the masked lax.scan's measured isolated cost is
-    the best achievable on this hardware (the fused Pallas scan kernel wins
-    in isolation but is a measured net loss in-model — PERF.md), and its
-    per-step state round trips are invisible to the two-resource model.
-    Additive in apsol: the scan is a strict data dependence behind the same
-    iteration's gathers.
+  * gather rows (a count, not part of the bound) — rows moved through
+    data-dependent indices per step.
 
 The bound is deliberately UNACHIEVABLE-optimistic (perfect fusion, zero
 re-materialization, no padding): achieved % of it is a conservative
-statement of headroom. Padded sizes from BatchMeta are used as stand-ins
-for real sizes (bench batches pad by <13%).
+statement of headroom. Padded sizes from BatchMeta stand in for real sizes.
+The device's peaks come from one table keyed by `device_kind`; a device
+that is not in the table is an error, not a default.
 """
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass, field
 from typing import Dict
 
 
-@dataclass
-class HardwareSpec:
-    """TPU v5e defaults; override via env for other chips."""
+@dataclass(frozen=True)
+class Peaks:
+    """Published peak rates of one device."""
 
-    name: str = "v5e"
-    hbm_gbps: float = float(os.environ.get("IGNNITION_TPU_HBM_GBPS", 819.0))
-    mxu_tflops_bf16: float = float(
-        os.environ.get("IGNNITION_TPU_MXU_TFLOPS", 197.0)
-    )
-    # measured descriptor-bound random-row cost range on this chip
-    # (PERF.md: 0.76 ns/row at 262k rows from small tables, ~2 ns/row
-    # typical, 5x past the 262k-row source cliff) — informational
-    gather_ns_per_row: float = float(
-        os.environ.get("IGNNITION_TPU_GATHER_NS", 2.0)
-    )
-    # measured per-entry-per-pass cost of the dense GAT softmax, calibrated
-    # from the isolated flash kernels on v5e (min-of-trials; PERF.md
-    # 'Dense attention at its floor'): forward 2.38 ps/entry — the 2-byte
-    # incidence read AT HBM bandwidth, the score/exp VPU chain fully hidden
-    # under the DMA — and backward ~6.7 ps/entry (tile recompute + three
-    # VMEM matmul passes); 4.55 ps/entry averaged over the two passes per
-    # iteration. A cost the two-resource roofline cannot see (the matrix
-    # bytes alone under-count the backward); carried into apsol for
-    # dense-eligible attention. r5: the incidence matrix now stores int8
-    # (upcast in-register; kernel fwd+bwd measured 1.08x at
-    # [2048, 16384]) — the constant scales to 4.55/1.08 = 4.21 so the
-    # floor stays at or below the achievable kernel
-    dense_attn_ps_per_entry: float = float(
-        os.environ.get("IGNNITION_TPU_DENSE_ATTN_PS", 4.21)
-    )
-    # measured floor of the masked recurrent time scan (tools/exp_rnn_floor
-    # .py, v5e, min-of-trials, fwd+bwd chained in-jit): each sequential
-    # step costs max(per-step floor, per-element rate * rows * width) —
-    # per-element 31.4-39.4 ps/elem across probed (L, N) at D=32 (take the
-    # min: a floor must sit at or below every measurement), per-step floor
-    # 4.1-4.7 us at overhead-bound shapes (N<=4096). Covers the gate
-    # FLOPs, the [L, N, D] input stream (fwd read + remat re-read + ct
-    # write) and the per-step state round trips — so scanned recurrent
-    # updates charge THIS instead of the rnn_update FLOPs + seq_stream
-    # bytes items (same no-double-charge convention as dense_attn). The
-    # LSTM check (exp_rnn_floor --cell LSTM): 53-84 ps/elem, 5.5-39.6
-    # us/step across the same grid — the 4/3 gate_scale applied to the
-    # GRU constants (41.9 ps/elem) stays below every LSTM measurement,
-    # so the scaled floor is valid. The
-    # fused Pallas scan kernel is faster in isolation but a measured net
-    # loss in-model (PERF.md 'Failed experiments'), so the lax.scan path's
-    # isolated cost is the best ACHIEVABLE per-scan cost, the same
-    # best-available-lowering convention as the gather floor.
-    rnn_scan_ps_per_elem: float = float(
-        os.environ.get("IGNNITION_TPU_RNN_SCAN_PS", 31.4)
-    )
-    rnn_scan_us_per_step: float = float(
-        os.environ.get("IGNNITION_TPU_RNN_SCAN_US", 4.1)
-    )
-    # measured per-row floor of the sorted (packed Pallas) segment sum.
-    # Every non-dense adjacency pays one segmented per-source reduction of
-    # its E cotangents (or messages) per iteration — a granularity-bound
-    # pass (4-edge packed rows through 8-sublane tiles, the smallest
-    # Mosaic-issuable unit) the byte model cannot see, and the gather
-    # constant does not cover (a separate pass from the perm gather).
-    # Calibration (tools/exp_segsum_floor.py, v5e, min-of-trials, bf16
-    # input / f32 accumulate): 0.47-0.73 ns/row isolated across the
-    # shipped shapes (f32 input 1.35-1.61) — and the r4 flagship profile
-    # shows the IN-MODEL kernels at 0.42 ns/row effective (their DMA
-    # waits overlap adjacent ops). A floor must sit at or below every
-    # observation, so the default takes the lowest figure. Best-available: the packed kernel is 3.0x over XLA scatter,
-    # and the dense-matmul alternative reads an [n_src, L*n_dst] incidence
-    # per iteration — orders of magnitude more traffic at these shapes.
-    segsum_ns_per_row: float = float(
-        os.environ.get("IGNNITION_TPU_SEGSUM_NS", 0.42)
-    )
+    name: str
+    hbm_gbps: float  # device-memory bandwidth, GB/s
+    bf16_tflops: float  # dense bf16 tensor-core rate, TFLOP/s
+    source: str
+
+
+# keyed by jax.Device.device_kind
+PEAKS: Dict[str, Peaks] = {
+    "NVIDIA H100 80GB HBM3": Peaks(
+        name="H100 SXM",
+        hbm_gbps=3350.0,
+        bf16_tflops=989.0,
+        source="NVIDIA H100 Tensor Core GPU data sheet, SXM5 part, dense "
+        "(no sparsity); rates assume the full 700 W power limit",
+    ),
+}
+
+
+def peaks_for(device_kind: str) -> Peaks:
+    """The peaks of `device_kind`; raises KeyError for a device that is not
+    in PEAKS."""
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise KeyError(
+            f"no published peaks for device kind {device_kind!r}; add its "
+            f"data-sheet rates to utils/roofline.py PEAKS (known: "
+            f"{sorted(PEAKS)})"
+        ) from None
 
 
 @dataclass
@@ -138,19 +80,6 @@ class StepCost:
     bytes_by: Dict[str, float] = field(default_factory=dict)
     flops_by: Dict[str, float] = field(default_factory=dict)
     gather_rows: float = 0.0
-    # [n_dst, n_src]-entry passes of the dense attention lowering (2 per
-    # iteration: one forward, one backward recompute) — charged at the
-    # calibrated HardwareSpec.dense_attn_ps_per_entry
-    dense_attn_entry_passes: float = 0.0
-    # masked recurrent time scans: (steps_per_iter, elems_per_iter, width,
-    # iters, gate_scale) per scanned update — charged per iteration at
-    # max(steps * us_per_step, elems * width * ps_per_elem) with the
-    # calibrated HardwareSpec constants (gate_scale 1.0 GRU, 4/3 LSTM)
-    rnn_scans: list = field(default_factory=list)
-    # rows through sorted segmented reductions (one per non-dense adjacency
-    # per iteration), charged at HardwareSpec.segsum_ns_per_row — part of
-    # the access-pattern floor alongside gather_rows
-    segsum_rows: float = 0.0
 
     def add_bytes(self, item: str, n: float):
         self.bytes_by[item] = self.bytes_by.get(item, 0.0) + float(n)
@@ -166,17 +95,14 @@ class StepCost:
     def total_flops(self) -> float:
         return sum(self.flops_by.values())
 
-    def bound_seconds(self, hw: HardwareSpec) -> Dict[str, float]:
-        t_bytes = self.total_bytes / (hw.hbm_gbps * 1e9)
-        t_flops = self.total_flops / (hw.mxu_tflops_bf16 * 1e12)
+    def bound_seconds(self, peaks: Peaks) -> Dict[str, float]:
+        t_bytes = self.total_bytes / (peaks.hbm_gbps * 1e9)
+        t_flops = self.total_flops / (peaks.bf16_tflops * 1e12)
         return {
             "t_bytes_ms": t_bytes * 1e3,
             "t_flops_ms": t_flops * 1e3,
             "sol_ms": max(t_bytes, t_flops) * 1e3,
             "binding": "bytes" if t_bytes >= t_flops else "flops",
-            "gather_floor_ms_informational": (
-                self.gather_rows * hw.gather_ns_per_row * 1e-9 * 1e3
-            ),
         }
 
 
@@ -266,8 +192,7 @@ def train_step_cost(model_ir, meta, dtype_bytes: int = 2) -> StepCost:
                 local = is_source_local(src.ops)
                 # dense-incidence eligibility (both data-layer gates: entry
                 # cap AND the minimum edge count below which the matrix is
-                # never emitted, graph.py _DENSE_INC_MIN_EDGES) — used by
-                # the local streaming branch below AND the segsum charge
+                # never emitted, graph.py _DENSE_INC_MIN_EDGES)
                 dense_ok = (
                     local
                     and src.adj_name in dense_adjs
@@ -306,7 +231,8 @@ def train_step_cost(model_ir, meta, dtype_bytes: int = 2) -> StepCost:
                             named_dims[op.output_name] = cur
                         for (i, o) in dims:
                             c.add_flops("message_mlp", 3 * 2 * rows * i * o * iters)
-                        # interior activations cross HBM (1 fwd + 2 bwd)
+                        # interior activations cross device memory
+                        # (1 fwd + 2 bwd)
                         for (_i, o) in dims[:-1]:
                             c.add_bytes("message_acts", 3 * rows * o * b * iters)
                 if not local:
@@ -321,18 +247,10 @@ def train_step_cost(model_ir, meta, dtype_bytes: int = 2) -> StepCost:
                 final_dims.append(cur)
 
                 if seq_agg:
-                    if mp.update.kind == "recurrent":
-                        # the calibrated rnn_scan term (below) ALREADY
-                        # includes the [L, N, D] input stream (fwd read +
-                        # remat re-read + cotangent write) — charging
-                        # seq_stream too would double-count it (r5; same
-                        # convention as dense_attn's incidence read)
-                        pass
-                    else:
-                        # sequence consumption is inherently edge-slot-rate
-                        # even for source-local messages: fwd read + bwd
-                        # residual + bwd cotangent
-                        c.add_bytes("seq_stream", 3 * E * msg_dim * b * iters)
+                    # sequence consumption is inherently edge-slot-rate
+                    # even for source-local messages: fwd read + bwd
+                    # residual + bwd cotangent
+                    c.add_bytes("seq_stream", 3 * E * msg_dim * b * iters)
                     c.gather_rows += 2 * E * iters
                     if concat2:
                         # axis-2 concat shares one slot grid across sources
@@ -346,105 +264,50 @@ def train_step_cost(model_ir, meta, dtype_bytes: int = 2) -> StepCost:
                     # commutative aggregation streaming from the node-rate
                     # message table: table read fwd + cotangent bwd
                     c.add_bytes("node_tables", 2 * n_s * msg_dim * b * iters)
-                    # ...but streaming-from-the-table requires a dense/
-                    # blocks incidence lowering. When the shape is
-                    # ineligible (entry cap — e.g. flagship_x4's 537M-entry
-                    # matrix), the best available lowering gathers the
-                    # edge-rate message stream (fwd) and routes its
-                    # cotangent (bwd): charge the descriptor floor for that
-                    # movement, the same best-available-lowering convention
-                    # the slot paths set in round 3
                     if not dense_ok:
+                        # without a dense/blocks incidence lowering (entry
+                        # cap), the edge-rate message stream is gathered
+                        # (fwd) and its cotangent routed back (bwd)
                         c.gather_rows += 2 * E * iters
-                    elif mp.aggregation.kind == "attention":
-                        # the flash lowering's calibrated per-entry constant
-                        # ALREADY includes the one incidence-matrix read per
-                        # pass (dense_attn_entry_passes below) — adding the
-                        # bytes item too double-charged the matrix
-                        # (review-found)
-                        pass
                     else:
-                        # the dense lowering's mandatory traffic is the
-                        # incidence matrix itself, read once per direction
-                        # of AD per iteration (M @ s fwd, M^T @ ct bwd) —
-                        # blocks shrink it to the per-graph diagonal.
-                        # 1 byte/entry: the data layer stores non-attention
-                        # incidence matrices as int8 (r5, convert-on-load
-                        # fused into the matmul — tools/exp_int8_inc.py)
+                        # the dense lowering reads the int8 incidence matrix
+                        # once per pass: M @ s fwd and M^T @ ct bwd for a
+                        # sum; the flash attention kernels read it three
+                        # times (forward, dst- and src-backward). Blocks
+                        # shrink it to the per-graph diagonal
                         blk = dict(meta.inc_blocks).get(src.adj_name)
                         entries = (
                             blk[0] * blk[1] * blk[2] if blk else n_d * n_s
                         )
+                        reads = 3 if mp.aggregation.kind == "attention" else 2
                         c.add_bytes(
-                            "dense_inc_matrix", entries * 1 * 2 * iters
+                            "dense_inc_matrix", entries * 1 * reads * iters
                         )
-                else:
-                    pass  # edge stream already counted above
 
                 # index companions (int32), fwd + bwd
                 c.add_bytes("indices", 2 * E * 4 * iters)
                 # aggregation adds
                 c.add_flops("aggregation", 2 * E * msg_dim * iters)
-                # every non-dense adjacency pays ONE sorted segmented
-                # per-source reduction of E rows per iteration (the
-                # aggregation itself for sum-style lowerings; the slice/
-                # windowed transpose's final pass for ordered/slot paths) —
-                # charged at the measured packed-kernel floor (r5,
-                # tools/exp_segsum_floor.py). Dense/flash lowerings fold it
-                # into the incidence matmul / flash constant instead.
-                if seq_agg or not dense_ok:
-                    c.segsum_rows += E * iters
 
                 if mp.aggregation.kind == "attention":
                     # per-node score matmuls + width-1 edge score stream
                     c.add_flops("attention", 3 * 2 * (n_s + n_d) * d_dst
                                 * d_dst * iters)
                     c.add_bytes("attention_scores", 3 * E * b * iters)
-                    # the dense lowering (the fastest measured one for
-                    # direct-message attention, flash kernel) pays one
-                    # score/exp pass over every [n_dst, n_src] entry per
-                    # direction of AD — a VPU-bound cost outside the
-                    # two-resource model (charged in apsol via
-                    # dense_attn_ps_per_entry; the one incidence-matrix
-                    # read per pass is INSIDE that calibrated constant,
-                    # so no separate bytes item is added)
-                    if (
-                        src.adj_name in dense_adjs
-                        and E >= _DENSE_INC_MIN_EDGES
-                    ):
-                        blk = dict(meta.inc_blocks).get(src.adj_name)
-                        entries = (
-                            blk[0] * blk[1] * blk[2] if blk else n_d * n_s
-                        )
-                        if entries <= _DENSE_INC_MAX_ENTRIES:
-                            c.dense_attn_entry_passes += entries * 2 * iters
                 elif mp.aggregation.kind == "convolution":
                     c.add_flops("convolution", 3 * 2 * n_s * d_src * d_dst
                                 * iters)
 
             # update
+            per_elem = 12 if mp.update.kind == "recurrent" and (
+                mp.update.rnn.cell_type == "GRU"
+            ) else 16
             if mp.update.kind == "recurrent" and seq_agg:
-                # scanned (sequence) recurrent update: charged via the
-                # calibrated scan floor (bound_seconds), NOT the FLOPs
-                # model — the scan's gate FLOPs, input stream and per-step
-                # state round trips are all inside the measured constant.
-                # L: the sequential chain length per iteration. max over
-                # sources keeps the bound a LOWER bound for concat/
-                # interleave merges (whose combined sequence is up to the
-                # SUM of the per-source lengths).
-                L = max(
-                    (meta.maxlen(src.adj_name) for src in mp.sources
-                     if dict(meta.max_len).get(src.adj_name)),
-                    default=1,
-                )
-                gate_scale = (
-                    1.0 if mp.update.rnn.cell_type == "GRU" else 4.0 / 3.0
-                )
-                c.rnn_scans.append(
-                    (L, total_msg_elems, d_dst, iters, gate_scale)
-                )
+                # scanned (sequence) recurrent update: one cell step per
+                # real message slot
+                c.add_flops("rnn_update", 3 * per_elem * d_dst * d_dst
+                            * total_msg_elems * iters)
             elif mp.update.kind == "recurrent":
-                per_elem = (12 if mp.update.rnn.cell_type == "GRU" else 16)
                 c.add_flops("rnn_update", 3 * per_elem * d_dst * d_dst
                             * n_d * iters)
             else:
@@ -479,42 +342,15 @@ def train_step_cost(model_ir, meta, dtype_bytes: int = 2) -> StepCost:
     return c
 
 
-def roofline_report(model_ir, meta, measured_ms: float,
-                    hw: HardwareSpec = None,
+def roofline_report(model_ir, meta, measured_ms: float, device_kind: str,
                     dtype_bytes: int = 2) -> Dict[str, object]:
-    """One dict per bench family: itemized model + bound + achieved %."""
-    hw = hw or HardwareSpec()
+    """One dict per bench cell: itemized model + bound + achieved % of the
+    published peaks of `device_kind` (KeyError if it has none)."""
+    peaks = peaks_for(device_kind)
     c = train_step_cost(model_ir, meta, dtype_bytes)
-    bounds = c.bound_seconds(hw)
-    # access-pattern-aware speed of light: the classic two resources PLUS
-    # the measured descriptor-bound random-row floor (the resource that
-    # actually binds these graph workloads on TPU), plus the calibrated
-    # dense-attention softmax term where that lowering applies (VPU-bound
-    # work over [n_dst, n_src] entries — additive because it overlaps
-    # neither the gather descriptors nor the counted byte streams)
-    dense_attn_ms = (
-        c.dense_attn_entry_passes * hw.dense_attn_ps_per_entry * 1e-12 * 1e3
-    )
-    # calibrated masked-scan floor: per iteration each scan costs
-    # max(sequential-step floor, per-element rate) — additive because the
-    # scan is a strict data dependence behind the slice gathers of the same
-    # iteration (and its traffic/FLOPs were removed from the byte/FLOP
-    # items above)
-    rnn_scan_ms = sum(
-        iters * max(
-            L * hw.rnn_scan_us_per_step * 1e-3,
-            elems * width * gate_scale * hw.rnn_scan_ps_per_elem * 1e-9,
-        )
-        for (L, elems, width, iters, gate_scale) in c.rnn_scans
-    )
-    # access-pattern floor: the descriptor-bound gathers PLUS the
-    # granularity-bound sorted segmented reductions (distinct sequential
-    # passes over the same edge streams)
-    segsum_ms = c.segsum_rows * hw.segsum_ns_per_row * 1e-9 * 1e3
-    ap_floor_ms = bounds["gather_floor_ms_informational"] + segsum_ms
-    apsol = max(bounds["sol_ms"], ap_floor_ms) + dense_attn_ms + rnn_scan_ms
+    bounds = c.bound_seconds(peaks)
     return {
-        "hw": hw.name,
+        "peaks": peaks.name,
         "bytes_mb": round(c.total_bytes / 1e6, 2),
         "gflops": round(c.total_flops / 1e9, 2),
         "t_bytes_ms": round(bounds["t_bytes_ms"], 3),
@@ -524,17 +360,7 @@ def roofline_report(model_ir, meta, measured_ms: float,
         "measured_ms": round(measured_ms, 3),
         "sol_pct": round(100.0 * bounds["sol_ms"] / measured_ms, 1)
         if measured_ms else None,
-        "apsol_ms": round(apsol, 3),
-        "apsol_pct": round(100.0 * apsol / measured_ms, 1)
-        if measured_ms else None,
         "gather_rows_m": round(c.gather_rows / 1e6, 2),
-        "gather_floor_ms_informational": round(
-            bounds["gather_floor_ms_informational"], 3
-        ),
-        "dense_attn_ms": round(dense_attn_ms, 3),
-        "rnn_scan_ms": round(rnn_scan_ms, 3),
-        "segsum_ms": round(segsum_ms, 3),
-        "segsum_rows_m": round(c.segsum_rows / 1e6, 2),
         "bytes_items_mb": {k: round(v / 1e6, 2)
                            for k, v in sorted(c.bytes_by.items())},
         "flops_items_g": {k: round(v / 1e9, 2)

@@ -5,6 +5,7 @@ INI keys fail loudly (typo protection the reference lacks)."""
 from __future__ import annotations
 
 import copy
+import os
 
 import jax
 import numpy as np
@@ -122,10 +123,11 @@ def test_default_section_keys_allowed(tmp_path):
     assert cfg.batch_size == 4
 
 
-def test_compilation_cache_dir_wires_jax_config(tmp_path):
+def test_compilation_cache_dir_wires_jax_config(tmp_path, monkeypatch):
     """[PATHS] compilation_cache_dir parses and the API entry points point
     JAX's persistent compilation cache at it (api._enable_compilation_cache
-    — restarted processes then reuse compiled TPU executables)."""
+    — restarted processes then reuse compiled executables)."""
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
     p = tmp_path / "train_options.ini"
     cache = tmp_path / "xla_cache"
     p.write_text(
@@ -144,5 +146,36 @@ def test_compilation_cache_dir_wires_jax_config(tmp_path):
         # unset leaves the current setting alone
         api._enable_compilation_cache(RunConfig())
         assert jax.config.jax_compilation_cache_dir == str(cache)
+    finally:
+        jax.config.update("jax_compilation_cache_dir", prev)
+
+
+@pytest.mark.parametrize("env_set", [True, False])
+def test_compilation_cache_rule(tmp_path, monkeypatch, env_set):
+    """utils/cache.py: JAX_COMPILATION_CACHE_DIR, where set, is the cache
+    and nothing is set in code (the INI key yields to it too); otherwise
+    the caller's directory, by default .jax_cache/ at the checkout root."""
+    from ignnition_tpu import api
+    from ignnition_tpu.utils import cache
+
+    prev = jax.config.jax_compilation_cache_dir
+    jax.config.update("jax_compilation_cache_dir", None)
+    try:
+        if env_set:
+            monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "env"))
+            assert cache.enable_compilation_cache() == str(tmp_path / "env")
+            api._enable_compilation_cache(
+                RunConfig(compilation_cache_dir=str(tmp_path / "ini"))
+            )
+            assert jax.config.jax_compilation_cache_dir is None
+        else:
+            monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+            d = cache.enable_compilation_cache()
+            assert d == os.path.join(cache.CHECKOUT_ROOT, ".jax_cache")
+            assert os.path.isfile(os.path.join(cache.CHECKOUT_ROOT, "pyproject.toml"))
+            assert jax.config.jax_compilation_cache_dir == d
+            other = str(tmp_path / "mine")
+            assert cache.enable_compilation_cache(other) == other
+            assert jax.config.jax_compilation_cache_dir == other
     finally:
         jax.config.update("jax_compilation_cache_dir", prev)

@@ -101,3 +101,73 @@ def test_direct_assignation_output_name_is_friendly_error():
         parser.parse_model_description(
             desc, {"link_capacity": 1, "traffic": 1}
         )
+
+
+# one case per JSON-Schema keyword the built-in validator covers
+# (frontend/schema.py _first_violation): (schema, valid, invalid, message)
+_KEYWORD_CASES = {
+    "type": ({"type": "integer"}, 3, True, "True is not of type 'integer'"),
+    "properties": (
+        {"type": "object", "properties": {"a": {"type": "string"}}},
+        {"a": "x", "b": 1}, {"a": 1}, "1 is not of type 'string'",
+    ),
+    "required": (
+        {"type": "object", "required": ["a"]}, {"a": 1}, {"b": 1},
+        "'a' is a required property",
+    ),
+    "enum": ({"enum": ["sum", "ordered"]}, "sum", "median",
+             "'median' is not one of ['sum', 'ordered']"),
+    "const": ({"const": "GRU"}, "GRU", "LSTM", "'GRU' was expected"),
+    "items": ({"type": "array", "items": {"type": "number"}}, [1, 2.5],
+              [1, "x"], "'x' is not of type 'number'"),
+    "minItems": ({"type": "array", "minItems": 1}, [0], [],
+                 "[] should be non-empty"),
+    "exclusiveMinimum": ({"type": "number", "exclusiveMinimum": 0}, 0.5, 0,
+                         "0 is less than or equal to the minimum of 0"),
+    "allOf": ({"allOf": [{"type": "integer"}, {"enum": [1, 2]}]}, 2, 3,
+              "3 is not one of [1, 2]"),
+    "if_then": (
+        {"if": {"properties": {"t": {"const": "c"}}},
+         "then": {"required": ["axis"]}},
+        {"t": "c", "axis": 1}, {"t": "c"}, "'axis' is a required property",
+    ),
+    "if_else": (
+        {"if": {"properties": {"t": {"const": "c"}}},
+         "then": {"required": ["axis"]}, "else": {"required": ["r"]}},
+        {"t": "d", "r": 1}, {"t": "d"}, "'r' is a required property",
+    ),
+}
+
+
+@pytest.mark.parametrize("keyword", sorted(_KEYWORD_CASES))
+def test_schema_validator_keyword(keyword):
+    from ignnition_tpu.frontend.schema import _first_violation
+
+    schema, valid, invalid, message = _KEYWORD_CASES[keyword]
+    assert _first_violation(valid, schema, []) is None
+    v = _first_violation(invalid, schema, [])
+    assert v is not None and v.message == message
+
+
+def test_schema_error_names_the_path():
+    """The error keeps the `at '<path>': <message>` format, path from the
+    document root, list indices included."""
+    d = routenet_description()
+    d["message_passing"]["stages"][0]["stage_mp"][0]["aggregation"].pop("type")
+    with pytest.raises(
+        ModelDescriptionError,
+        match=r"schema validation at 'message_passing/stages/0/stage_mp/0/"
+        r"aggregation': 'type' is a required property",
+    ):
+        parser.parse_model_description(d)
+
+
+def test_yaml_description_without_pyyaml_is_a_friendly_error(tmp_path,
+                                                            monkeypatch):
+    import sys
+
+    path = tmp_path / "model_description.yaml"
+    path.write_text("entities: []\n")
+    monkeypatch.setitem(sys.modules, "yaml", None)  # import yaml -> ImportError
+    with pytest.raises(ModelDescriptionError, match="PyYAML"):
+        parser.load_description(str(path))

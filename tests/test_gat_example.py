@@ -1,4 +1,4 @@
-"""The GAT example end-to-end: attention aggregation from the YAML DSL.
+"""The GAT example end-to-end: attention aggregation from the JSON DSL.
 
 The synthetic label is a softmax mean of neighbor signals weighted by the
 neighbors' own importance — GATv1-representable, NOT uniform-aggregation-
@@ -13,7 +13,7 @@ import os
 import jax
 import numpy as np
 import pytest
-import yaml
+import json
 
 import ignnition_tpu as ig
 from ignnition_tpu.data import SampleSpec, build_batch, iter_samples
@@ -22,13 +22,13 @@ from ignnition_tpu.frontend import parser
 from ignnition_tpu.model import build
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-DESC = os.path.join(HERE, "..", "examples", "gat", "model_description.yaml")
+DESC = os.path.join(HERE, "..", "examples", "gat", "model_description.json")
 DIMS = {"signal": 1, "importance": 1, "adj_nodes_nodes": 0}
 
 
 def description():
     with open(DESC) as f:
-        return yaml.safe_load(f)
+        return json.load(f)
 
 
 @pytest.fixture(scope="module")

@@ -12,7 +12,7 @@ import os
 import jax
 import numpy as np
 import pytest
-import yaml
+import json
 
 import ignnition_tpu as ig
 from ignnition_tpu.data.graph import PaddingConfig
@@ -22,7 +22,7 @@ from ignnition_tpu.training.metrics import MetricAccumulator
 from ignnition_tpu.training.trainer import TrainState
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-YAML_PATH = os.path.join(HERE, "..", "examples", "graphprop", "model_description.yaml")
+DESC_PATH = os.path.join(HERE, "..", "examples", "graphprop", "model_description.json")
 
 
 @pytest.fixture(scope="module")
@@ -34,8 +34,8 @@ def dataset(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def model_ir(dataset):
-    with open(YAML_PATH) as f:
-        desc = yaml.safe_load(f)
+    with open(DESC_PATH) as f:
+        desc = json.load(f)
     return ig.parse_model_description(desc, ig.find_dataset_dimensions(dataset))
 
 

@@ -12,7 +12,7 @@ import os
 import jax
 import numpy as np
 import pytest
-import yaml
+import json
 
 import ignnition_tpu as ig
 from ignnition_tpu.config import RunConfig
@@ -22,12 +22,12 @@ from ignnition_tpu.frontend import parser
 from ignnition_tpu.model import build
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-DESC = os.path.join(HERE, "..", "examples", "linkpred", "model_description.yaml")
+DESC = os.path.join(HERE, "..", "examples", "linkpred", "model_description.json")
 
 
 def description():
     with open(DESC) as f:
-        return yaml.safe_load(f)
+        return json.load(f)
 
 
 @pytest.fixture(scope="module")

@@ -1,6 +1,5 @@
-"""HBM-footprint estimator (utils/memory.py, VERDICT r4 #5): the
-fits-on-one-chip statement behind edgeshard v2, validated on-hardware in
-docs/scaling.md 'Single-chip capacity'."""
+"""Device-memory footprint estimator (utils/memory.py): the
+fits-on-one-device statement behind edgeshard v2."""
 
 import copy
 import logging
@@ -52,20 +51,34 @@ def test_estimate_scales_and_itemizes():
 
 
 def test_recommended_shards():
-    assert recommended_shards(1e9, hbm_gb=16.0) == 1
-    assert recommended_shards(20e9, hbm_gb=16.0) == 2
-    assert recommended_shards(40e9, hbm_gb=16.0) == 4
-    # ~80% headroom rule: just above usable -> 2
-    assert recommended_shards(0.9 * 16e9, hbm_gb=16.0) == 2
+    assert recommended_shards(1e9, 16e9) == 1
+    assert recommended_shards(20e9, 16e9) == 2
+    assert recommended_shards(40e9, 16e9) == 4
+    # the capacity is the allocator's own limit: exactly full still fits
+    assert recommended_shards(16e9, 16e9) == 1
+    assert recommended_shards(16.1e9, 16e9) == 2
 
 
 def test_capacity_warning_fires_only_when_too_big(caplog):
     ir = _ir()
     log = logging.getLogger("test_capacity")
     with caplog.at_level(logging.WARNING, logger="test_capacity"):
-        m_small = maybe_warn_capacity(ir, _meta(1), log=log)
+        m_small = maybe_warn_capacity(ir, _meta(1), log=log,
+                                      capacity_bytes=16e9)
     assert m_small == 1 and not caplog.records
     with caplog.at_level(logging.WARNING, logger="test_capacity"):
-        m_big = maybe_warn_capacity(ir, _meta(128), log=log)
+        m_big = maybe_warn_capacity(ir, _meta(128), log=log,
+                                    capacity_bytes=16e9)
     assert m_big > 1
     assert any("dest_shard" in r.getMessage() for r in caplog.records)
+
+
+def test_capacity_comes_from_the_device(caplog):
+    """The CPU reports no allocator limit: no capacity, never a warning."""
+    from ignnition_tpu.utils.memory import device_capacity_bytes
+
+    assert device_capacity_bytes() is None
+    log = logging.getLogger("test_capacity")
+    with caplog.at_level(logging.WARNING, logger="test_capacity"):
+        assert maybe_warn_capacity(_ir(), _meta(128), log=log) == 1
+    assert not caplog.records

@@ -1,4 +1,4 @@
-"""End-to-end forward-pass parity: the padded/merged/scanned TPU-native
+"""End-to-end forward-pass parity: the padded/merged/scanned
 implementation vs a dense numpy oracle that follows the reference execution
 order (generate_model.py:384-658) literally, graph by graph."""
 

@@ -8,10 +8,8 @@ from ignnition_tpu.data import graph as G
 from ignnition_tpu.data import native_loader as NL
 from tests.test_fast_backward import _random_adjacency
 
-pytestmark = pytest.mark.skipif(
-    not NL.available() or not hasattr(NL._load(), "ign_adjacency_aux"),
-    reason="native library not built (make -C native)",
-)
+# the session fixture builds the library (make -C native) first
+pytestmark = pytest.mark.usefixtures("native_loader")
 
 
 def _both(src, dst, emask, n_src_pad, n_dst_pad, max_len, bwd_len=None):

@@ -12,9 +12,8 @@ from ignnition_tpu.frontend import parser
 
 from helpers import routenet_description, qsize_description
 
-pytestmark = pytest.mark.skipif(
-    not native_loader.available(), reason="native loader not built"
-)
+# the session fixture builds the library (make -C native) first
+pytestmark = pytest.mark.usefixtures("native_loader")
 
 
 def _compare(sample_a, sample_b):
@@ -92,12 +91,12 @@ def test_native_preserves_adjacency_insertion_order(tmp_path):
     order, so the native JSON parser must preserve document key order —
     the linkpred generator inserts destinations in SHUFFLED order."""
     from ignnition_tpu.data.synthetic import write_linkpred_dataset
-    import yaml
+    import json
 
     write_linkpred_dataset(str(tmp_path), 1, 5, seed=21)
-    desc = yaml.safe_load(
+    desc = json.load(
         open(os.path.join(os.path.dirname(__file__), "..", "examples",
-                          "linkpred", "model_description.yaml"))
+                          "linkpred", "model_description.json"))
     )
     ir = parser.parse_model_description(desc, {"x": 1})
     spec = SampleSpec.from_ir(ir)

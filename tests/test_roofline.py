@@ -1,5 +1,5 @@
 """Speed-of-light accounting (utils/roofline.py): the itemized bytes/FLOPs
-model behind bench.py's sol_pct / apsol_pct fields."""
+model behind bench.py's sol_pct field, and the peaks table."""
 
 from __future__ import annotations
 
@@ -10,11 +10,12 @@ import pytest
 from ignnition_tpu.data import SampleSpec, build_batch, convert_sample
 from ignnition_tpu.frontend import parser
 from ignnition_tpu.utils.roofline import (
-    HardwareSpec, roofline_report, train_step_cost,
+    PEAKS, peaks_for, roofline_report, train_step_cost,
 )
 
 from helpers import routenet_description
 
+H100 = "NVIDIA H100 80GB HBM3"
 DIMS = {"link_capacity": 1, "traffic": 1,
         "adj_links_paths": 0, "adj_paths_links": 0}
 
@@ -38,13 +39,11 @@ def test_itemization_sums_and_bounds():
     assert c.total_bytes == pytest.approx(sum(c.bytes_by.values()))
     assert c.total_flops == pytest.approx(sum(c.flops_by.values()))
     assert c.total_bytes > 0 and c.total_flops > 0 and c.gather_rows > 0
-    # ordered stage1's recurrent scan is charged via the calibrated scan
-    # floor (r5) — its input stream/FLOPs must NOT also appear as byte/FLOP
-    # items; direct sum stage2 streams node tables
-    assert c.rnn_scans and all(len(t) == 5 for t in c.rnn_scans)
-    assert "seq_stream" not in c.bytes_by
+    # ordered stage1 consumes a per-slot sequence through its GRU scan;
+    # direct sum stage2 streams node tables
+    assert "seq_stream" in c.bytes_by and "rnn_update" in c.flops_by
     assert "node_tables" in c.bytes_by
-    b = c.bound_seconds(HardwareSpec())
+    b = c.bound_seconds(peaks_for(H100))
     assert b["sol_ms"] == pytest.approx(
         max(b["t_bytes_ms"], b["t_flops_ms"])
     )
@@ -56,10 +55,12 @@ def test_iterations_scale_iteration_rate_items():
     ir2, meta2 = _meta(d2)
     ir4, meta4 = _meta(d4)
     c2, c4 = train_step_cost(ir2, meta2), train_step_cost(ir4, meta4)
-    # the scan term scales with iterations (same L/elems, 2x iters)
-    (l2, e2, w2, i2, g2), = [t for t in c2.rnn_scans]
-    (l4, e4, w4, i4, g4), = [t for t in c4.rnn_scans]
-    assert (l4, e4, w4, g4) == (l2, e2, w2, g2) and i4 == 2 * i2
+    # iteration-rate items scale with iterations
+    for item in ("seq_stream", "node_tables", "state_tables"):
+        assert c4.bytes_by[item] == pytest.approx(2 * c2.bytes_by[item])
+    assert c4.flops_by["rnn_update"] == pytest.approx(
+        2 * c2.flops_by["rnn_update"]
+    )
     assert c4.gather_rows == pytest.approx(2 * c2.gather_rows)
     # readout runs once per step regardless of iterations
     assert c4.flops_by["readout"] == pytest.approx(c2.flops_by["readout"])
@@ -90,33 +91,21 @@ def test_per_edge_messages_cost_more_than_direct():
 
 def test_report_fields_and_percentages():
     ir, meta = _meta(routenet_description(num_iterations=4, hs=16))
-    rep = roofline_report(ir, meta, measured_ms=10.0)
-    for k in ("sol_ms", "sol_pct", "apsol_ms", "apsol_pct", "binding",
+    rep = roofline_report(ir, meta, measured_ms=10.0, device_kind=H100)
+    for k in ("sol_ms", "sol_pct", "binding", "peaks",
               "bytes_items_mb", "flops_items_g", "gather_rows_m"):
         assert k in rep
-    assert rep["apsol_ms"] >= rep["sol_ms"]
     assert rep["sol_pct"] == pytest.approx(100 * rep["sol_ms"] / 10.0, rel=1e-3)
 
 
-def test_rnn_scan_floor_term():
-    """r5: scanned recurrent updates are charged the calibrated scan floor
-    (rnn_scan_ms), additive in apsol; the per-iteration charge is
-    max(per-step floor, per-element rate)."""
-    ir, meta = _meta(routenet_description(num_iterations=4, hs=16))
-    rep = roofline_report(ir, meta, measured_ms=10.0)
-    assert rep["rnn_scan_ms"] > 0
-    assert rep["apsol_ms"] == pytest.approx(
-        max(rep["sol_ms"], rep["gather_floor_ms_informational"])
-        + rep["dense_attn_ms"] + rep["rnn_scan_ms"],
-        rel=1e-2,
-    )
-    hw = HardwareSpec()
-    c = train_step_cost(ir, meta)
-    expect = sum(
-        iters * max(
-            L * hw.rnn_scan_us_per_step * 1e-3,
-            e * w * g * hw.rnn_scan_ps_per_elem * 1e-9,
-        )
-        for (L, e, w, iters, g) in c.rnn_scans
-    )
-    assert rep["rnn_scan_ms"] == pytest.approx(expect, rel=1e-2)
+def test_peaks_table():
+    """Peaks come from one table keyed by device_kind, with their source;
+    a device that is not in it is an error, never a default."""
+    p = peaks_for(H100)
+    assert (p.hbm_gbps, p.bf16_tflops) == (3350.0, 989.0)
+    assert all(v.source for v in PEAKS.values())
+    with pytest.raises(KeyError, match="no published peaks"):
+        peaks_for("cpu")
+    ir, meta = _meta(routenet_description(num_iterations=2, hs=16))
+    with pytest.raises(KeyError):
+        roofline_report(ir, meta, measured_ms=1.0, device_kind="unknown accelerator")

@@ -112,7 +112,6 @@ def test_checkpoint_roundtrip(dataset, trainer, tmp_path):
     state = trainer.init_state(jax.random.PRNGKey(1))
     mgr = _make_checkpoint_manager(str(tmp_path / "ckpt"), keep_max=3)
     save_checkpoint(mgr, state)
-    mgr.wait_until_finished()
 
     state2 = trainer.init_state(jax.random.PRNGKey(2))
     restored = restore_checkpoint(mgr, state2)
@@ -125,6 +124,67 @@ def test_checkpoint_roundtrip(dataset, trainer, tmp_path):
     for a, b in zip(l1, jax.tree_util.tree_leaves(warm.params)):
         np.testing.assert_allclose(a, b)
     assert warm.step == 0  # warm start does not restore the step
+
+
+def test_checkpoint_keep_max_and_atomic_layout(trainer, tmp_path):
+    """Only the newest keep_max checkpoints survive; each is a complete
+    ckpt_<step>/ directory (npz leaves + JSON trees) and no temporary
+    directory is left behind; re-saving a step replaces it."""
+    from ignnition_tpu.training.trainer import (
+        CheckpointManager, TrainState, restore_checkpoint, save_checkpoint,
+    )
+
+    state = trainer.init_state(jax.random.PRNGKey(3))
+    mgr = CheckpointManager(str(tmp_path / "ckpt"), keep_max=2)
+    for step in (1, 2, 3, 3):
+        save_checkpoint(mgr, TrainState(state.params, state.opt_state, step))
+    assert mgr.steps() == [2, 3]
+    assert sorted(os.listdir(mgr.directory)) == ["ckpt_2", "ckpt_3"]
+    assert sorted(os.listdir(os.path.join(mgr.directory, "ckpt_3"))) == [
+        "opt_state.npz", "opt_state_tree.json", "params.npz",
+        "params_tree.json",
+    ]
+    restored = restore_checkpoint(mgr, trainer.init_state(jax.random.PRNGKey(4)))
+    assert restored.step == 3
+    # the optimizer state keeps its container types (optax named tuples)
+    assert jax.tree_util.tree_structure(restored.opt_state) == (
+        jax.tree_util.tree_structure(state.opt_state)
+    )
+    for a, b in zip(jax.tree_util.tree_leaves(state.opt_state),
+                    jax.tree_util.tree_leaves(restored.opt_state)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_warm_start_and_resume(dataset, trainer, tmp_path):
+    """Training resumes from the latest checkpoint in its directory; warm
+    start restores parameters only; a mismatched model is refused."""
+    from ignnition_tpu.training.trainer import CheckpointManager, warm_start
+
+    ckpt = str(tmp_path / "run")
+    state = trainer.train(trainer.init_state(jax.random.PRNGKey(5)), dataset,
+                          max_steps=2, batch_size=2, log_every=0,
+                          checkpoint_dir=ckpt)
+    assert CheckpointManager(ckpt).steps() == [2]
+    resumed = trainer.train(trainer.init_state(jax.random.PRNGKey(6)),
+                            dataset, max_steps=3, batch_size=2, log_every=0,
+                            checkpoint_dir=ckpt)
+    assert resumed.step == 3 and CheckpointManager(ckpt).steps() == [2, 3]
+
+    fresh = trainer.init_state(jax.random.PRNGKey(7))
+    warm = warm_start(fresh, ckpt)
+    assert warm.step == 0 and warm.opt_state is fresh.opt_state
+    for a, b in zip(jax.tree_util.tree_leaves(resumed.params),
+                    jax.tree_util.tree_leaves(warm.params)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    with pytest.raises(FileNotFoundError):
+        warm_start(fresh, str(tmp_path / "missing"))
+
+    other = Trainer(build(parser.parse_model_description(
+        routenet_description(num_iterations=2, hs=8),
+        {"link_capacity": 1, "traffic": 1},
+    )))
+    with pytest.raises(ValueError, match="does not match"):
+        warm_start(other.init_state(jax.random.PRNGKey(0)), ckpt)
 
 
 def test_api_verbs_end_to_end(dataset, tmp_path, caplog):

@@ -10,9 +10,15 @@ Usage: python -m tools.accuracy_run [--steps 2500] [--no-dense] [--cpu]
 
 import argparse
 import os
+import tempfile
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/ignnition_jax_cache")
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from ignnition_tpu.utils.cache import enable_compilation_cache  # noqa: E402
+
+enable_compilation_cache()
 
 
 def main():
@@ -41,7 +47,7 @@ def main():
     from ignnition_tpu.training.trainer import Trainer, TrainState
     from __graft_entry__ import _flagship
 
-    root = "/tmp/ignnition_accuracy_ds"
+    root = os.path.join(tempfile.gettempdir(), "ignnition_accuracy_ds")
     train_dir, eval_dir = f"{root}/train", f"{root}/eval"
     if not os.path.isdir(train_dir):
         write_dataset(

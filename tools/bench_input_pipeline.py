@@ -7,6 +7,7 @@ below the device steps/s (bench.py), streaming training is host-bound.
 """
 
 import os
+import tempfile
 import sys
 import time
 
@@ -34,7 +35,7 @@ def flagship_ir(d):
 
 
 def main():
-    d = "/tmp/bench_input_ds16"
+    d = os.path.join(tempfile.gettempdir(), "bench_input_ds16")
     if not os.path.isdir(d):
         # ~800 graphs of ~120 links / 400 paths each
         write_dataset(d, num_archives=16, samples_per_archive=50, seed=0,

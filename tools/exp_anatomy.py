@@ -1,4 +1,4 @@
-"""Decompose the flagship training step cost (TPU, bf16 headline config):
+"""Decompose the flagship training step cost (bf16 headline config):
 forward-only, forward+backward, full step; and per-stage variants.
 """
 
@@ -6,8 +6,10 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/ignnition_jax_cache")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from ignnition_tpu.utils.cache import enable_compilation_cache  # noqa: E402
+
+enable_compilation_cache()
 
 import jax
 import jax.numpy as jnp
@@ -17,8 +19,8 @@ from bench import build_case, time_step
 
 
 def time_fn(fn, args, iters=40):
-    """bench.time_step's fetch-based timing for an arbitrary fn whose output
-    contains a scalar to fetch (uses the first leaf)."""
+    """Per-call seconds of jit(fn), timed by fetching the output's first
+    leaf to the host (which waits for the device)."""
     fn = jax.jit(fn)
     out = fn(*args)
     leaf = jax.tree_util.tree_leaves(out)[0]

@@ -2,10 +2,14 @@
 definition of named fusions (to identify profiler hot spots)."""
 
 import os
+import tempfile
 import re
 import sys
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/ignnition_jax_cache")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from ignnition_tpu.utils.cache import enable_compilation_cache  # noqa: E402
+
+enable_compilation_cache()
 
 import jax
 import jax.numpy as jnp
@@ -20,9 +24,10 @@ def main():
     lowered = fn.lower(params, opt_state, arrays)
     compiled = lowered.compile()
     hlo = compiled.as_text()
-    with open("/tmp/flagship_hlo.txt", "w") as f:
+    path = os.path.join(tempfile.gettempdir(), "flagship_hlo.txt")
+    with open(path, "w") as f:
         f.write(hlo)
-    print(f"HLO written ({len(hlo)} bytes) to /tmp/flagship_hlo.txt")
+    print(f"HLO written ({len(hlo)} bytes) to {path}")
     for name in names:
         # print the computation a fusion calls, plus the fusion instruction
         for m in re.finditer(rf"^\s*%?{re.escape(name)} = .*$", hlo, re.M):

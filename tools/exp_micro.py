@@ -1,6 +1,6 @@
-"""Micro-timings of the stage-1 hot ops at flagship shapes (TPU, bf16).
+"""Micro-timings of the stage-1 hot ops at flagship shapes (bf16).
 
-Pieces: table gather, permutation gather, packed segment sum, masked GRU
+Pieces: table gather, permutation gather, sorted segment sum, masked GRU
 scan fwd / fwd+bwd, full stage1 fwd / fwd+bwd.
 """
 
@@ -8,8 +8,10 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/ignnition_jax_cache")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from ignnition_tpu.utils.cache import enable_compilation_cache  # noqa: E402
+
+enable_compilation_cache()
 
 import jax
 import jax.numpy as jnp
@@ -18,18 +20,12 @@ import numpy as np
 
 def time_fn(fn, args, iters=60):
     fn = jax.jit(fn)
-    out = fn(*args)
-    np.asarray(jax.tree_util.tree_leaves(out)[0])
-    t0 = time.time()
-    out = fn(*args)
-    np.asarray(jax.tree_util.tree_leaves(out)[0])
-    t_base = time.time() - t0
-    t0 = time.time()
+    jax.block_until_ready(fn(*args))
+    t0 = time.perf_counter()
     for _ in range(iters):
         out = fn(*args)
-    np.asarray(jax.tree_util.tree_leaves(out)[0])
-    t_n = time.time() - t0
-    return max(t_n - t_base, 1e-9) / (iters - 1)
+    jax.block_until_ready(out)
+    return (time.perf_counter() - t0) / iters
 
 
 def main():
@@ -43,9 +39,6 @@ def main():
     perm = jnp.asarray(rng.permutation(M), jnp.int32)
     big = jnp.asarray(rng.standard_normal((M, D)), dt)
     sort_ids = jnp.asarray(np.sort(rng.integers(0, N_LINK, M)), jnp.int32)
-    row_ptr = jnp.asarray(
-        np.searchsorted(np.asarray(sort_ids), np.arange(N_LINK + 1)), jnp.int32
-    )
     h0 = jnp.asarray(rng.standard_normal((N_PATH, D)), dt)
     lens = jnp.full((N_PATH,), L, jnp.int32)
 
@@ -61,12 +54,11 @@ def main():
 
     t = time_fn(
         lambda b: seg.segment_sum(
-            b, sort_ids, N_LINK, indices_are_sorted=True, row_ptr=row_ptr,
-            use_pallas="always",
+            b, sort_ids, N_LINK, indices_are_sorted=True
         ).sum(),
         (big.astype(jnp.float32),),
     )
-    print(f"packed segsum {M}->{N_LINK}:           {t*1e3:6.2f} ms")
+    print(f"sorted segsum {M}->{N_LINK}:           {t*1e3:6.2f} ms")
 
     spec = RNNSpec(name="u", cell_type="GRU")
     gp = {

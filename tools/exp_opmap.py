@@ -15,19 +15,22 @@ import glob
 import gzip
 import json
 import os
+import tempfile
 import re
 import sys
 from collections import defaultdict
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/ignnition_jax_cache")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from ignnition_tpu.utils.cache import enable_compilation_cache  # noqa: E402
+
+enable_compilation_cache()
 
 import jax
 import jax.numpy as jnp
 
 from bench import build_case, detail_cases
 
-TRACE_DIR = "/tmp/ignnition_opmap"
+TRACE_DIR = os.path.join(tempfile.gettempdir(), "ignnition_opmap")
 STEPS = 5
 
 
@@ -61,8 +64,8 @@ def categorize(name, kind, op_name, tag):
         return "rnn_scan (GRU updates)"
     if "attention_kernels" in tag:
         return "dense_attn (flash kernel)"
-    if kind == "custom-call" or name.startswith(("jvp__", "transpose_jvp__")):
-        return "pallas_segment_sum"
+    if kind == "custom-call":
+        return "custom calls (Triton kernels, library calls)"
     if "/gather" in op_name:
         if "transpose(" in op_name:
             return "gather_bwd (slice/windowed transposes)"
@@ -91,7 +94,7 @@ def main():
     elif args.family == "flagship_x4":
         case = build_case(n_links=8192, n_paths=65536)
     else:
-        case = detail_cases(20)[args.family]()
+        case = detail_cases()[args.family]()
     make_step, params, opt_state, arrays, edges = case
     arrays = jax.device_put(arrays)
     fn = jax.jit(make_step(jnp.bfloat16))
@@ -122,7 +125,8 @@ def main():
     for e in events:
         if e.get("ph") != "X":
             continue
-        if "TPU" not in pid_names.get(e.get("pid"), ""):
+        # device planes only: the GPU's streams, not host threads
+        if not pid_names.get(e.get("pid"), "").startswith("/device:GPU"):
             continue
         name = e.get("name", "")
         if name.startswith(("jit_", "while.")) or name.isdigit():

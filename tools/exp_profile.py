@@ -8,11 +8,14 @@ import glob
 import gzip
 import json
 import os
+import tempfile
 import sys
 from collections import defaultdict
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/ignnition_jax_cache")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from ignnition_tpu.utils.cache import enable_compilation_cache  # noqa: E402
+
+enable_compilation_cache()
 
 import jax
 import jax.numpy as jnp
@@ -20,7 +23,7 @@ import numpy as np
 
 from bench import build_case, detail_cases
 
-TRACE_DIR = "/tmp/ignnition_profile"
+TRACE_DIR = os.path.join(tempfile.gettempdir(), "ignnition_profile")
 
 
 def main():
@@ -36,7 +39,7 @@ def main():
     if args.family == "flagship":
         case = build_case()
     else:
-        case = detail_cases(20)[args.family]()
+        case = detail_cases()[args.family]()
     make_step, params, opt_state, arrays, _ = case
     arrays = jax.device_put(arrays)
     fn = jax.jit(make_step(jnp.bfloat16))
@@ -58,7 +61,7 @@ def main():
         trace = json.load(f)
 
     events = trace.get("traceEvents", [])
-    # identify device lanes (TPU/xla ops), skip python/host threads
+    # device planes only (the GPU's streams), skip python/host threads
     pid_names = {}
     for e in events:
         if e.get("ph") == "M" and e.get("name") == "process_name":
@@ -70,7 +73,7 @@ def main():
         if e.get("ph") != "X":
             continue
         pname = pid_names.get(e.get("pid"), "")
-        if "TPU" not in pname and "xla" not in pname.lower() and "device" not in pname.lower():
+        if not pname.startswith("/device:GPU"):
             continue
         name = e.get("name", "")
         d = e.get("dur", 0) / 1e3  # us -> ms

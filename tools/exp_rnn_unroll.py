@@ -13,17 +13,17 @@ object, so no stale-trace hazard):
   d) python loop, no checkpoint (AD saves gates per step — measures
      whether remat still pays once the loop is unrolled)
 
-Measured (v5e, flagship, PERF.md 'Failed experiments'): a/b/c within run
-noise (7.55/7.58/7.48 ms); d regresses to 8.34 — the scan steps' cost is
-gate compute + state round-trips, not loop overhead, and remat still pays.
+Not yet measured on the GPU.
 """
 
 import os
 import sys
 import functools
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/ignnition_jax_cache")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from ignnition_tpu.utils.cache import enable_compilation_cache  # noqa: E402
+
+enable_compilation_cache()
 
 import jax
 import jax.numpy as jnp

@@ -1,15 +1,17 @@
-"""Experiment: scan-unroll effects on the flagship training step (TPU).
+"""Experiment: scan-unroll effects on the flagship training step .
 
 Tries (a) current config, (b) inner time-scan unrolled, (c) outer
-iteration-scan unrolled, measuring fetch-based step time like bench.py.
+iteration-scan unrolled, measuring the step time like bench.py.
 """
 
 import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/ignnition_jax_cache")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from ignnition_tpu.utils.cache import enable_compilation_cache  # noqa: E402
+
+enable_compilation_cache()
 
 import jax
 import jax.numpy as jnp

@@ -2,7 +2,7 @@
 
 Usage:
   python tools/export_serving.py --config train_options.ini --out DIR \
-      [--ckpt CHECKPOINT_DIR] [--batch-size N] [--platforms tpu]
+      [--ckpt CHECKPOINT_DIR] [--batch-size N] [--platforms cuda]
 
 The artifact (serialized StableHLO + params + manifest, see
 ignnition_tpu/serving.py) reloads with `ignnition_tpu.load_serving(DIR)`
@@ -29,7 +29,7 @@ def main():
     ap.add_argument(
         "--platforms",
         default=None,
-        help="comma-separated lowering platforms, e.g. 'tpu' or 'cpu,tpu' "
+        help="comma-separated lowering platforms, e.g. 'cuda' or 'cpu,cuda' "
         "(default: the current backend)",
     )
     ap.add_argument(
